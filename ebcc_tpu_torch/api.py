@@ -1,0 +1,461 @@
+"""Array-in / bytes-out compression API on a torch device.
+
+Counterpart of the main path of ``ebcc_tpu.api``: error-bounded
+(MAX_ERROR / RELATIVE_ERROR) compression of [..., H, W] float32 frames in
+batches, and decompression of the resulting container blobs.  Containers
+are format v4 (docs/FORMAT.md), byte-identical to the JAX package's and
+the native CPU encoder's on the same input and config.
+
+Per batch the host quantises to u16 (native, the same code the CPU encoder
+runs), the device runs transform, analysis and every truncation search
+(:class:`.codec.pipeline.FrameCodec`), and the host packs the chosen
+selections with the native bitplane coder, applies zstd and assembles the
+frames.  Decode runs the native structural decoder on the host and the
+reconstruction on the device.
+
+The device is explicit: ``device="cuda"`` (the default) needs a CUDA
+device and raises without one; ``device="cpu"`` runs the same code with
+the kernels' plain torch versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .codec import container
+from .codec.config import (EBCCConfig, ResidualMode, base_error_quantile,
+                           pure_fallback_disabled)
+from .codec.pipeline import COEF_FIELDS, FrameCodec
+from .ops import bitplane as bp
+from .runtime import native as _native
+from .utils import logging as elog
+
+# residual streams smaller than this are dropped (j2k_codec.h:653)
+MIN_RESID_BYTES = 16
+# early pure-base decision margins (see _decide_pure); part of the container
+# selection rule, mirrored by native/ebcc_cpu_encoder.cc
+PURE_DECIDE_NUM = 2
+PURE_DECIDE_DEN = 5
+TIER0_MAX_EXTRA_BITS = 128
+
+_ERROR_MODES = (ResidualMode.MAX_ERROR, ResidualMode.RELATIVE_ERROR)
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' requested but CUDA is not "
+                               "available; pass device='cpu'")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def _scale_u16_host(frames: np.ndarray):
+    """Host-side u16 quantisation: ``(u, mn, mx, maxq)``.  Every error
+    target is tightened by ``maxq`` because the device's error reference
+    is the u16-dequantised field."""
+    return _native.scale_u16_batch(frames)
+
+
+def _upload_u16(u: np.ndarray, device) -> torch.Tensor:
+    """uint16 planes -> int32 tensor on ``device`` (u16 crosses the bus)."""
+    t = torch.from_numpy(np.ascontiguousarray(u).view(np.int16)).to(device)
+    return t.to(torch.int32) & 0xFFFF
+
+
+def _zstd_compress(data: bytes, level: int) -> bytes:
+    """The container format mandates zstd (docs/FORMAT.md); the native
+    runtime's system libzstd is the one the CPU encoder uses too."""
+    return _native.zstd_compress_batch([data], level)[0]
+
+
+def _mask_tail(stream: bytes, nbits: int) -> bytes:
+    """Zero the dangling bits of the final byte past ``nbits``: a stream
+    trimmed out of a longer prefix arena must not carry the arena's next
+    bits (mirrored by the native encoder's pack_variant)."""
+    pad = -int(nbits) % 8
+    if pad and stream:
+        return stream[:-1] + bytes([stream[-1] & (0xFF << pad) & 0xFF])
+    return stream
+
+
+def _batches(n: int, size: int):
+    for i in range(0, n, size):
+        yield i, min(i + size, n)
+
+
+def _clamp_levels(config: EBCCConfig, h: int, w: int) -> EBCCConfig:
+    """L levels need 2**(L+1) < min(h, w); the effective geometry is
+    stored in the container, so decode follows automatically."""
+    max_lv = max(0, (min(h, w) - 1).bit_length() - 2)
+    if config.base_levels > max_lv or config.residual_levels > max_lv:
+        config = dataclasses.replace(
+            config, base_levels=min(config.base_levels, max_lv),
+            residual_levels=min(config.residual_levels, max_lv))
+    return config
+
+
+def compress(data, config: EBCCConfig | None = None, *, device="cuda",
+             qbase=None) -> bytes:
+    """Compress ``data`` ([..., H, W] float32) into a container blob.
+
+    ``device``: where the transform and the searches run ("cuda" or
+    "cpu").  ``qbase``: base-layer feasibility quantile override (defaults
+    to the EBCC_INIT_BASE_ERROR_QUANTILE env var).
+    """
+    config = config or EBCCConfig()
+    dev = _device(device)
+    if config.mode not in _ERROR_MODES:
+        raise ValueError(f"ebcc_tpu_torch encodes MAX_ERROR and "
+                         f"RELATIVE_ERROR only, not {config.mode!r}")
+    if config.use_chunk_mask and config.mask_search != "greedy":
+        raise ValueError("ebcc_tpu_torch implements mask_search='greedy' "
+                         "only")
+    data = np.asarray(data, np.float32)
+    if data.ndim < 2:
+        raise ValueError("data must be at least 2-D")
+    h, w = data.shape[-2], data.shape[-1]
+    if min(h, w) < 4:
+        raise ValueError("frames must be at least 4x4")
+    frames = data.reshape(-1, h, w)
+    if frames.shape[0] == 0:
+        raise ValueError("no frames to compress")
+    if not np.isfinite(frames).all():
+        raise ValueError("NaN or Inf in data (j2k_codec.h:451-458)")
+    config = _clamp_levels(config, h, w)
+    if qbase is None:
+        qbase = base_error_quantile()
+    codec = FrameCodec(h, w, config, dev)
+    n = frames.shape[0]
+    bsz = min(config.max_batch, n)
+    out_frames = []
+    for lo, hi in _batches(n, bsz):
+        u, mnb, mxb, maxq = _scale_u16_host(frames[lo:hi])
+        if config.mode == ResidualMode.RELATIVE_ERROR:
+            target = (config.error * (mxb - mnb)).astype(np.float32)
+        else:
+            target = np.full(hi - lo, config.error, np.float32)
+        target = target - maxq
+        res = codec.encode_error_bounded_hostq(
+            _upload_u16(u, dev), torch.from_numpy(mnb).to(dev),
+            torch.from_numpy(mxb).to(dev), torch.from_numpy(target).to(dev),
+            qbase)
+        out_frames += _host_stage(res, codec, config, h, w)
+    return container.pack_blob(out_frames)
+
+
+def _host_stage(res, codec, config, h, w) -> list[bytes]:
+    """Selections of one device batch -> container frames."""
+    resn = {k: v.cpu().numpy() for k, v in res._asdict().items()
+            if k not in COEF_FIELDS}
+    resn["decided_pure"] = _decide_pure(resn)
+    _check_plane_budget(resn, config)
+    streams = _pack_streams(resn, codec, res)
+    n = len(resn["mn"])
+    zblobs = _zstd_stage(resn, streams, n, config)
+    return [_assemble_frame(resn, i, h, w, config, streams, zblobs)
+            for i in range(n)]
+
+
+def _decide_pure(res) -> np.ndarray:
+    """Frames whose pure-base variant is selected WITHOUT building the
+    base+residual candidate (bool [B]), from the small fields alone:
+
+    * pure is *required*: the residual stream would be dropped (fewer than
+      MIN_RESID_BYTES) or is infeasible;
+    * pure *certainly wins the size comparison*: feasible, and its extra
+      base bits cost at most PURE_DECIDE_NUM/DEN of the residual stream's
+      raw bits (zstd on these near-random streams measures 1.0-1.3x), or
+      at most TIER0_MAX_EXTRA_BITS (tier 0, decided before the residual).
+
+    Part of the container selection rule: the native encoder mirrors it
+    exactly.  Undecided frames fall through to the exact post-zstd byte
+    comparison in :func:`_assemble_frame`.
+    """
+    const = np.asarray(res["const"], bool)
+    skip = np.asarray(res["skip_residual"], bool)
+    br = np.asarray(res["mbits_r"], np.int64)
+    bq = np.asarray(res["mbits_q"], np.int64)
+    bpp = np.asarray(res["mbits_pure"], np.int64)
+    feas_r = np.asarray(res["resid_feasible"], bool)
+    present = ~skip & (br > 0) & ((br + 7) // 8 > MIN_RESID_BYTES)
+    required = ~skip & (~present | ~feas_r)
+    decided = required
+    tier0 = np.zeros(const.shape, bool)
+    if not pure_fallback_disabled():
+        feas_p = np.asarray(res["base_feasible_pure"], bool)
+        tier0 = ~const & ~skip & feas_p & (bpp - bq <= TIER0_MAX_EXTRA_BITS)
+        wins = (bpp - bq) * PURE_DECIDE_DEN <= br * PURE_DECIDE_NUM
+        tier2 = present & feas_r & feas_p & wins & ~tier0 & ~required
+        decided = decided | tier0 | tier2
+    # tier-0 frames never build a residual layer in the native encoder;
+    # the plane-budget check follows the same frames
+    res["decided_pure_pre"] = tier0
+    return decided & ~const
+
+
+def _check_plane_budget(res, config) -> None:
+    """Coefficients above the top scanned plane cannot be represented in
+    the stream: fail loudly before packing (the native encoder returns -3
+    for the same condition)."""
+    if int(np.max(res["max_step_b"])) >= config.base_nplanes:
+        raise ValueError(
+            "coefficient magnitudes exceed the configured bitplane budget; "
+            "raise base_nplanes")
+    emits = ~(np.asarray(res["const"]) | np.asarray(res["skip_residual"]) |
+              np.asarray(res["decided_pure_pre"]))
+    if np.any(emits &
+              (np.asarray(res["max_step_r"]) >= config.residual_nplanes)):
+        raise ValueError(
+            "coefficient magnitudes exceed the configured bitplane budget; "
+            "raise residual_nplanes")
+
+
+def _zstd_stage(res, streams, n, config):
+    """Entropy-pack the residual streams of the frames that keep one."""
+    _, resid_stream = streams
+    rbytes, idx = [], []
+    for i in range(n):
+        if res["const"][i] or res["skip_residual"][i] or \
+                res["decided_pure"][i]:
+            continue
+        rb = resid_stream(i, int(res["mbits_r"][i]), int(res["km_r"][i]),
+                          res["segs_r"][i])
+        if len(rb) > MIN_RESID_BYTES:
+            rbytes.append(rb)
+            idx.append(i)
+    return dict(zip(idx, _native.zstd_compress_batch(rbytes,
+                                                     config.zstd_level)))
+
+
+def _pack_layer_streams(codec, res, layer, trunc):
+    """Entropy-pack one layer's (coefficients, truncation) pairs with the
+    native host coder.  Returns stream(i, bits, km=-1, segs=None): any
+    prefix of the embedded stream up to ``trunc[i]``, or — ``km >= 0``,
+    format v4 — the chunk-masked stream spliced out of the prefix arena
+    (``trunc[i]`` covers that plane's end)."""
+    spec = (codec.base if layer == "base" else codec.resid).spec
+    if int(trunc.max(initial=0)) == 0:
+        # no frame keeps bits of this layer: its coefficients stay put
+        return lambda i, bits, km=-1, segs=None: b""
+    coef = getattr(res, f"{layer}_coef").cpu().numpy()
+    arena = _native.coder_encode_batch(coef, trunc, spec.group_levels,
+                                       spec.nplanes, spec.nchunks)
+
+    def raw(i, bits):
+        return _mask_tail(arena[i, : (int(bits) + 7) // 8].tobytes(), bits)
+
+    def stream(i, bits, km=-1, segs=None):
+        if km < 0:
+            return raw(i, bits)
+        sb, nbits = bp.splice_masked_stream(raw(i, int(np.sum(segs))),
+                                            segs, km, spec.nchunks)
+        if nbits != int(bits):
+            raise RuntimeError("masked stream length mismatch")
+        return sb
+
+    return stream
+
+
+def _arena_bits(res, sel, bits):
+    """Arena coverage one selection needs: its prefix bits, or — when its
+    final plane is chunk-masked — that plane's end."""
+    km = np.asarray(res[f"km_{sel}"])
+    segs = np.asarray(res[f"segs_{sel}"], np.int64)
+    return np.where(km >= 0, segs.sum(-1), np.asarray(bits, np.int64))
+
+
+def _pack_streams(resn, codec, res):
+    """Both layers' stream packers: (base(...), resid(...))."""
+    decided = resn["decided_pure"]
+    arena_pure = _arena_bits(resn, "pure", resn["base_bits_pure"])
+    # decided frames emit only the pure variant
+    trunc_b = np.where(decided, arena_pure,
+                       np.maximum(_arena_bits(resn, "q", resn["base_bits_q"]),
+                                  arena_pure))
+    trunc_r = np.where(resn["skip_residual"] | decided, 0,
+                       _arena_bits(resn, "r", resn["resid_bits"]))
+    return (_pack_layer_streams(codec, res, "base", trunc_b),
+            _pack_layer_streams(codec, res, "resid", trunc_r))
+
+
+def _geom(config):
+    return (config.base_levels, config.residual_levels, config.nchunks,
+            config.base_nplanes, config.residual_nplanes)
+
+
+def _assemble_frame(res, i, h, w, config, streams, zblobs) -> bytes:
+    mode = int(config.mode)
+    mn, mx = float(res["mn"][i]), float(res["mx"][i])
+    if res["const"][i]:
+        return container.pack_frame(mode, h, w, mn, mx, const=True,
+                                    tot_size=h * w, geom=_geom(config))
+    base_stream, _ = streams
+    km_q, km_pure = int(res["km_q"][i]), int(res["km_pure"][i])
+    mask_q = ((int(res["bs_q"][i]), km_q) if km_q >= 0
+              else (container.MASK_NONE, 0))
+    mask_pure = ((int(res["bs_pure"][i]), km_pure) if km_pure >= 0
+                 else (container.MASK_NONE, 0))
+
+    def pack_variant(bits, rpart, km, segs, bmask):
+        raw = base_stream(i, bits, km, segs)
+        # final entropy stage on the base stream
+        z = _zstd_compress(raw, min(config.zstd_level, 10))
+        stream, base_z = (z, True) if len(z) < len(raw) else (raw, False)
+        return container.pack_frame(
+            mode, h, w, mn, mx, base_stream=stream, base_nbits=bits,
+            base_z=base_z, geom=_geom(config), resid=rpart, base_mask=bmask,
+            dc_b=float(res["dc_b"][i]),
+            max_step_b=int(res["max_step_b"][i]))
+
+    def pure():
+        return pack_variant(int(res["mbits_pure"][i]), None, km_pure,
+                            res["segs_pure"][i], mask_pure)
+
+    if res["decided_pure"][i]:
+        return pure()
+    skip = bool(res["skip_residual"][i])
+    resid_part = None
+    zblob = zblobs.get(i)
+    if not skip and zblob is not None:
+        km_r = int(res["km_r"][i])
+        rmask = ((int(res["bs_r"][i]), km_r) if km_r >= 0
+                 else (container.MASK_NONE, 0))
+        resid_part = (float(res["rmin"][i]), float(res["rmax"][i]),
+                      float(res["dc_r"][i]), int(res["max_step_r"][i]),
+                      int(res["mbits_r"][i]), zblob, *rmask)
+    combined = pack_variant(int(res["mbits_q"][i]), resid_part, km_q,
+                            res["segs_q"][i], mask_q)
+    # pure-base fallback comparison (j2k_codec.h:663-695)
+    pure_required = not skip and (resid_part is None or
+                                  not bool(res["resid_feasible"][i]))
+    if pure_fallback_disabled() and not pure_required:
+        return combined
+    pure_blob = pure()
+    if pure_required or (bool(res["base_feasible_pure"][i]) and
+                         len(pure_blob) < len(combined)):
+        elog.info("frame %d: pure base layer chosen (%d < %d bytes)",
+                  i, len(pure_blob), len(combined))
+        return pure_blob
+    return combined
+
+
+def _check_uniform_geometry(metas) -> None:
+    """Every non-const frame of a blob must share (h, w) and coder
+    geometry."""
+    keys = [(h.h, h.w, h.base_levels, h.resid_levels, h.nchunks,
+             h.base_nplanes, h.resid_nplanes) for h in metas
+            if not h.flags & container.FLAG_CONST]
+    if keys and any(k != keys[0] for k in keys[1:]):
+        raise ValueError("mixed coder geometries in one blob")
+
+
+def _layer_inputs(metas, idxs):
+    """Per-frame stream and header arrays of one decode batch."""
+    nb = len(idxs)
+    f = {k: np.zeros(nb, np.float32)
+         for k in ("mn", "mx", "dc_b", "rmin", "rmax", "dc_r")}
+    i = {k: np.zeros(nb, np.int64)
+         for k in ("bb", "msb", "rb", "msr", "keep_b", "keep_r")}
+    i["mask_b"] = np.full(nb, -1, np.int64)
+    i["mask_r"] = np.full(nb, -1, np.int64)
+    hasr = np.zeros(nb, bool)
+    base_streams, resid_streams = [b""] * nb, [b""] * nb
+    zlist, zmax, zpos = [], [], []
+    for k, idx in enumerate(idxs):
+        hdr, zblob, base_stream, _ = metas[idx]
+        if hdr.base_mask_plane != container.MASK_NONE:
+            if hdr.base_mask_plane >= hdr.base_nplanes:
+                raise ValueError("corrupt EBCC-TPU frame header")
+            i["mask_b"][k], i["keep_b"][k] = (hdr.base_mask_plane,
+                                              hdr.base_keep_mask)
+        if hdr.resid_mask_plane != container.MASK_NONE:
+            if hdr.resid_mask_plane >= hdr.resid_nplanes:
+                raise ValueError("corrupt EBCC-TPU frame header")
+            i["mask_r"][k], i["keep_r"][k] = (hdr.resid_mask_plane,
+                                              hdr.resid_keep_mask)
+        if hdr.flags & container.FLAG_BASE_Z:
+            base_stream = _native.zstd_decompress_batch(
+                [base_stream], [(hdr.base_nbits + 7) // 8])[0]
+        # header-declared bits must be backed by bytes
+        if len(base_stream) * 8 < hdr.base_nbits:
+            raise ValueError("truncated EBCC-TPU frame stream")
+        base_streams[k] = base_stream
+        i["bb"][k], i["msb"][k] = hdr.base_nbits, hdr.max_step_b
+        f["mn"][k], f["mx"][k], f["dc_b"][k] = hdr.mn, hdr.mx, hdr.dc_b
+        if hdr.flags & container.FLAG_RESID:
+            zlist.append(zblob)
+            zmax.append((hdr.resid_nbits + 7) // 8)
+            zpos.append(k)
+            i["rb"][k], i["msr"][k] = hdr.resid_nbits, hdr.max_step_r
+            f["rmin"][k], f["rmax"][k], f["dc_r"][k] = (hdr.rmin, hdr.rmax,
+                                                        hdr.dc_r)
+            hasr[k] = True
+    for k, rbytes in zip(zpos, _native.zstd_decompress_batch(zlist, zmax)):
+        if len(rbytes) * 8 < int(i["rb"][k]):
+            raise ValueError("truncated EBCC-TPU frame stream")
+        resid_streams[k] = rbytes
+    return base_streams, resid_streams, f, i, hasr
+
+
+def decompress(blob: bytes, config: EBCCConfig | None = None, *,
+               device="cuda") -> np.ndarray:
+    """Decompress a container blob back to [N, H, W] float32; the
+    reconstruction runs on ``device`` ("cuda" or "cpu")."""
+    config = config or EBCCConfig()
+    dev = _device(device)
+    metas = [container.unpack_frame(f) for f in container.unpack_blob(blob)]
+    out = [None] * len(metas)
+    todo = []
+    for idx, (hdr, _, _, _) in enumerate(metas):
+        if hdr.flags & container.FLAG_CONST:
+            out[idx] = np.full((hdr.h, hdr.w), hdr.mn, np.float32)
+        else:
+            todo.append(idx)
+    if not todo:
+        return np.stack(out)
+    g0 = metas[todo[0]][0]
+    _check_uniform_geometry([m[0] for m in metas])
+    # frames are self-describing: adopt the encoder's coder geometry
+    config = dataclasses.replace(
+        config, base_levels=g0.base_levels, residual_levels=g0.resid_levels,
+        nchunks=g0.nchunks, base_nplanes=g0.base_nplanes,
+        residual_nplanes=g0.resid_nplanes)
+    codec = FrameCodec(g0.h, g0.w, config, dev)
+    bspec, rspec = codec.base.spec, codec.resid.spec
+
+    def t(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    for lo, hi in _batches(len(todo), min(config.max_batch, len(todo))):
+        idxs = todo[lo:hi]
+        bs, rs, f, i, hasr = _layer_inputs(metas, idxs)
+        geo_b = (bspec.height, bspec.width, bspec.group_levels,
+                 bspec.nplanes, bspec.nchunks)
+        geo_r = (rspec.height, rspec.width, rspec.group_levels,
+                 rspec.nplanes, rspec.nchunks)
+        v16_b, bend_b, ok_b = _native.coder_decode_batch_u16(
+            bs, i["bb"], i["msb"], *geo_b, i["mask_b"], i["keep_b"])
+        v16_r, bend_r, ok_r = _native.coder_decode_batch_u16(
+            rs, i["rb"], i["msr"], *geo_r, i["mask_r"], i["keep_r"])
+        common = (t(f["mn"]), t(f["mx"]), t(f["dc_b"]), t(hasr))
+        resid = (t(f["rmin"]), t(f["rmax"]), t(f["dc_r"]))
+        if ok_b.all() and ok_r.all():
+            rec = codec.recon_packed(
+                _upload_u16(v16_b, dev), t(bend_b), *common,
+                _upload_u16(v16_r, dev), t(bend_r), *resid)
+        else:  # more than 14 decoded planes somewhere: f32 coefficients
+            coef_b = _native.coder_decode_batch(
+                bs, i["bb"], i["msb"], *geo_b, i["mask_b"], i["keep_b"])
+            coef_r = _native.coder_decode_batch(
+                rs, i["rb"], i["msr"], *geo_r, i["mask_r"], i["keep_r"])
+            rec = codec.recon(t(coef_b), *common, t(coef_r), *resid)
+        rec = rec.cpu().numpy()
+        for k, idx in enumerate(idxs):
+            out[idx] = rec[k]
+    return np.stack(out)

@@ -1,0 +1,394 @@
+"""Encode/decode stages of the two-layer error-bounded codec, in torch.
+
+Counterpart of the main path of ``ebcc_tpu.codec.pipeline``: u16 scaling,
+a lossy wavelet base layer, a residual layer, and truncation searches that
+enforce the error bound with a feasibility quantile and a pure-base
+fallback.  The base layer is an embedded bitstream, so every candidate
+rate is a prefix of one stream and its reconstruction is a closed form;
+each search evaluates candidates through :mod:`..ops.fused_eval` (the CUDA
+kernel on a CUDA device) by bisection and a greedy chunk-mask scan.
+
+Every stage runs on the device of its input tensors.  The searches keep
+per-frame ``[B]`` tensors and make no host synchronisation; the host sees
+only the chosen selections and the integer coefficient planes, which the
+native host coder turns into bytes.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops import bitplane as bp
+from ..ops import dwt, frame, weights
+from ..ops import fused_eval as fe
+from ..ops.frame import RESID_SCALE, U16_MAX
+from .config import EBCCConfig
+
+
+class LayerGeom(NamedTuple):
+    levels: int
+    hp: int
+    wp: int
+    spec: bp.CoderSpec
+
+
+def _make_geom(h, w, levels, nplanes, nchunks):
+    hp = frame.padded_size(h, levels)
+    wp = frame.padded_size(w, levels)
+    g = levels + 1  # quadtree depth; padded dims divide 2**(levels+1)
+    spec = bp.CoderSpec(height=hp, width=wp, group_levels=g,
+                        nplanes=nplanes, nchunks=nchunks)
+    return LayerGeom(levels, hp, wp, spec)
+
+
+class EncodeResult(NamedTuple):
+    """Device outputs of one batched encode (all leading dim B).
+
+    The fields the host needs to pack streams and assemble containers:
+    the selections (plane ``bs_*``, fine chunk ``ks_*``), their prefix and
+    final bit lengths, the format-v4 chunk masks (``km_*`` keep bitmask or
+    -1, ``segs_*`` the [2 + 2J] per-segment bit counts of the selection's
+    final plane) and the exact int32 coefficient planes of both layers.
+    """
+
+    mn: torch.Tensor
+    mx: torch.Tensor
+    const: torch.Tensor            # bool: constant field
+    dc_b: torch.Tensor
+    max_step_b: torch.Tensor
+    base_coef: torch.Tensor        # int32 [B, hp, wp]
+    base_bits_q: torch.Tensor      # truncation meeting the quantile
+    base_bits_pure: torch.Tensor   # truncation meeting the bound everywhere
+    base_feasible_pure: torch.Tensor
+    bs_q: torch.Tensor
+    ks_q: torch.Tensor
+    bs_pure: torch.Tensor
+    ks_pure: torch.Tensor
+    bs_r: torch.Tensor
+    ks_r: torch.Tensor
+    km_q: torch.Tensor
+    km_pure: torch.Tensor
+    km_r: torch.Tensor
+    mbits_q: torch.Tensor
+    mbits_pure: torch.Tensor
+    mbits_r: torch.Tensor
+    segs_q: torch.Tensor
+    segs_pure: torch.Tensor
+    segs_r: torch.Tensor
+    rmin: torch.Tensor
+    rmax: torch.Tensor
+    dc_r: torch.Tensor
+    max_step_r: torch.Tensor
+    resid_coef: torch.Tensor       # int32 [B, hp_r, wp_r]
+    resid_bits: torch.Tensor
+    resid_feasible: torch.Tensor   # bool: base@q + residual meets the bound
+    skip_residual: torch.Tensor    # bool: base@q alone meets the bound
+
+
+COEF_FIELDS = ("base_coef", "resid_coef")
+
+
+def _pad_to(x: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    return F.pad(x, (0, wp - x.shape[-1], 0, hp - x.shape[-2]))
+
+
+class _Eval:
+    """Candidate evaluator shared by one layer's truncation and chunk-mask
+    searches: (plane, chunks) or (plane, drop-mask) candidate -> (max
+    excess [B], violation fraction [B]) through
+    :func:`..ops.fused_eval.eval_stats`.  Holds the f32 workspace the CUDA
+    kernel reuses across the layer's evaluations."""
+
+    def __init__(self, geom: LayerGeom, h: int, w: int, ci, data_ref,
+                 target, kind, dc, lo, hi, base_rec=None):
+        hp, wp = geom.hp, geom.wp
+        self.nchunks = geom.spec.nchunks
+        self.args = dict(
+            ci=ci, ref=_pad_to(data_ref, hp, wp), kind=kind,
+            levels=geom.levels, nchunks=self.nchunks, h=h, w=w, dc=dc,
+            lo=lo, hi=hi, tgt=target,
+            base_rec=None if base_rec is None else _pad_to(base_rec, hp, wp))
+        self.workspace = (torch.empty(ci.shape, dtype=torch.float32,
+                                      device=ci.device)
+                          if ci.is_cuda else None)
+        # violation fraction = count * f32(1 / (h * w)), as the TPU kernel
+        self.inv_n = float(np.float32(1.0 / (h * w)))
+
+    def _stats(self, mode, b, **cand):
+        a = self.args
+        maxd, cnt = fe.eval_stats(a["ci"], a["ref"], b, mode=mode,
+                                  workspace=self.workspace,
+                                  **{k: v for k, v in a.items()
+                                     if k not in ("ci", "ref")}, **cand)
+        return maxd, cnt.float() * self.inv_n
+
+    def trunc(self, b, js=None, jr=None):
+        """Stats at a prefix candidate (None js/jr = plane complete)."""
+        j = self.nchunks
+        return self._stats("trunc", b, js=j if js is None else js,
+                           jr=j if jr is None else jr)
+
+    def masked(self, b, drop):
+        """Stats at a chunk-mask candidate (``drop`` [B, J] bool)."""
+        bits = torch.arange(drop.shape[1], dtype=torch.int32,
+                            device=drop.device)
+        dm = (drop.to(torch.int32) << bits).sum(-1)
+        return self._stats("masked", b, dropmask=dm)
+
+
+def _ok(maxd, viol, qallow: float):
+    """Feasibility rule: violation quantile, or the bound everywhere."""
+    return viol <= qallow if qallow > 0 else maxd <= 0
+
+
+class FrameCodec:
+    """Codec specialised to one frame geometry (H, W), config and device."""
+
+    def __init__(self, h: int, w: int, config: EBCCConfig,
+                 device: torch.device):
+        self.h, self.w, self.config = h, w, config
+        self.device = torch.device(device)
+        c = config
+        self.base = _make_geom(h, w, c.base_levels, c.base_nplanes,
+                               c.nchunks)
+        self.resid = _make_geom(h, w, c.residual_levels, c.residual_nplanes,
+                                c.nchunks)
+        self.wb = torch.from_numpy(weights.weight_array(
+            self.base.hp, self.base.wp, c.base_levels)).to(self.device)
+        self.wr = torch.from_numpy(weights.weight_array(
+            self.resid.hp, self.resid.wp, c.residual_levels)).to(self.device)
+
+    # ---------------- transforms ----------------
+
+    def _base_transform_scaled(self, uf):
+        """Pad/DC/DWT/quantise a u16 plane held in float32."""
+        up = frame.pad_symmetric(uf, self.base.levels)
+        upc, dc = frame.sub_dc_floor(up)
+        coef = dwt.dwt2d_multi(upc, self.base.levels)
+        return dc, torch.trunc(coef * self.wb).to(torch.int32)
+
+    def _hostq_prelude(self, u, mn, mx):
+        """u16 plane -> (error reference, const flag, dc, coefficients).
+
+        The error reference is the u16-dequantised field; the host already
+        tightened the targets by the per-frame quantisation error, so the
+        bound on the original data holds by the triangle inequality."""
+        uf = u.float()
+        dataq = frame.unscale(uf, mn, mx)
+        dc, ci = self._base_transform_scaled(uf)
+        return dataq, mn == mx, dc, ci
+
+    def _base_recon(self, rec_coef, mn, mx, dc):
+        rec = dwt.idwt2d_multi(rec_coef / self.wb, self.base.levels)
+        rec = (rec + dc[:, None, None]).clamp(0.0, U16_MAX)
+        return frame.unscale(frame.crop(rec, self.h, self.w), mn, mx)
+
+    def _resid_transform(self, resid):
+        rmin, rmax = frame.minmax(resid)
+        rng = torch.where(rmax > rmin, rmax - rmin, 1.0)
+        rn = (resid - rmin[:, None, None]) / rng[:, None, None] * RESID_SCALE
+        rp = frame.pad_symmetric(rn, self.resid.levels)
+        rpc, dcr = frame.sub_dc_floor(rp)
+        ci = torch.trunc(dwt.dwt2d_multi(rpc, self.resid.levels) * self.wr)
+        return rmin, rmax, dcr, ci.to(torch.int32)
+
+    def _resid_recon(self, rec_coef, rmin, rmax, dcr):
+        rec = dwt.idwt2d_multi(rec_coef / self.wr, self.resid.levels)
+        rec = (rec + dcr[:, None, None]).clamp(0.0, RESID_SCALE)
+        return frame.unscale(frame.crop(rec, self.h, self.w), rmin, rmax,
+                             frame.RECIP_RS)
+
+    # ---------------- truncation search ----------------
+    #
+    # Feasibility is monotone in coded depth, so the first-feasible
+    # searches are bisections over the candidate axes (the exact rule of
+    # the JAX package and the native encoder: lo=0, hi=n-1,
+    # mid=(lo+hi)//2, bit_length(n-1) iterations), per frame, on device.
+
+    @staticmethod
+    def _bisect(n, nb, device, feasible_at):
+        """Per-frame first index in [0, n) where ``feasible_at`` holds; n-1
+        if none.  ``feasible_at`` maps an int32 [B] index to bool [B]."""
+        lo = torch.zeros(nb, dtype=torch.int32, device=device)
+        hi = torch.full((nb,), n - 1, dtype=torch.int32, device=device)
+        for _ in range(max(1, (n - 1).bit_length())):
+            mid = (lo + hi) // 2
+            f = feasible_at(mid)
+            lo, hi = torch.where(f, lo, mid + 1), torch.where(f, mid, hi)
+        # all-infeasible frames overshoot lo past n-1; clamp
+        return torch.clamp(lo, max=n - 1)
+
+    def _search_truncation(self, geom, cand, ev, qallow):
+        """Smallest truncation whose violation fraction <= qallow.
+        Returns (bits [B], feasible [B], maxdiff at choice [B], bstar,
+        kstar)."""
+        p, j = geom.spec.nplanes, geom.spec.nchunks
+        nb, dev = cand.shape[0], cand.device
+        pstar = self._bisect(
+            p, nb, dev, lambda idx: _ok(*ev.trunc(p - 1 - idx), qallow))
+        bstar = p - 1 - pstar
+        maxd_p, viol_p = ev.trunc(bstar)
+        any_ok = _ok(maxd_p, viol_p, qallow)
+
+        def fine(idx):
+            js = torch.where(idx < j, idx + 1, j)
+            jr = torch.where(idx < j, 0, idx - j + 1)
+            return ev.trunc(bstar, js=js, jr=jr)
+
+        kstar = self._bisect(2 * j, nb, dev,
+                             lambda idx: _ok(*fine(idx), qallow))
+        maxd_f, _ = fine(kstar)
+        rows = torch.arange(nb, device=dev)
+        bits = cand[rows, pstar.long(), kstar.long()]
+        bits = torch.where(any_ok, bits, cand[:, -1, -1])
+        # infeasible frames report the plane-0-complete maxdiff
+        maxd = torch.where(any_ok, maxd_f, maxd_p)
+        return bits, any_ok, maxd, bstar, kstar
+
+    # ---------------- chunk-mask search (format v4) ----------------
+    #
+    # After the prefix search picks plane bs, a greedy pass tries to DROP
+    # each final-plane chunk in turn; a drop is kept only if the
+    # reconstruction with all accepted drops still meets the rule.  The
+    # native encoder mirrors the order and the accept rule.
+
+    def _mask_enabled(self, geom) -> bool:
+        return (self.config.use_chunk_mask and
+                geom.spec.nchunks <= 16)  # keep mask is u16 in the header
+
+    def _search_mask(self, geom, ev, qallow, bstar, prefix_bits, feasible,
+                     counts):
+        """Greedy chunk mask of plane ``bstar``.  Returns (use [B] bool,
+        km [B] keep bitmask or -1, mbits [B] final bits, maxd_m [B]
+        masked max-excess, drop [B, J] bool, segs [B, 2+2J])."""
+        spec = geom.spec
+        j = spec.nchunks
+        nb, dev = bstar.shape[0], bstar.device
+        segs = bp.mask_segments(counts, bstar, spec)
+        drop = torch.zeros((nb, j), dtype=torch.bool, device=dev)
+        if not self._mask_enabled(geom):
+            return (torch.zeros(nb, dtype=torch.bool, device=dev),
+                    torch.full((nb,), -1, dtype=torch.int64, device=dev),
+                    prefix_bits, torch.zeros(nb, device=dev), drop, segs)
+        for jj in range(j):  # the JAX package's lax.scan over chunks
+            cand = drop.clone()
+            cand[:, jj] = True
+            ok = _ok(*ev.masked(bstar, cand), qallow) & feasible
+            drop = torch.where(ok[:, None], cand, drop)
+        maxd_m, _ = ev.masked(bstar, drop)
+        keep = ~drop
+        kept_bits = torch.where(keep, segs[:, 2:2 + j] + segs[:, 2 + j:],
+                                0).sum(-1)
+        mbits = segs[:, 0] + segs[:, 1] + kept_bits
+        shifts = torch.arange(j, device=dev)
+        km = (keep.long() << shifts).sum(-1)
+        use = feasible & drop.any(-1) & (mbits < prefix_bits)
+        return (use, torch.where(use, km, -1),
+                torch.where(use, mbits, prefix_bits), maxd_m, drop, segs)
+
+    def _recon_at(self, an, geom, bstar, kstar):
+        """Coefficient reconstruction at the chosen (plane, chunk)."""
+        j = geom.spec.nchunks
+        js = torch.where(kstar < j, kstar + 1, j)
+        jr = torch.where(kstar < j, 0, kstar - j + 1)
+        return bp.recon_truncated(an, bstar, sig_chunks=js, refine_chunks=jr,
+                                  spec=geom.spec)
+
+    # ---------------- encode ----------------
+
+    def encode_error_bounded_hostq(self, u, mn, mx, target, qbase: float):
+        """MAX_ERROR / RELATIVE_ERROR encode from host-quantised input.
+
+        ``u``: int32 [B, H, W] holding the u16 planes; ``mn``/``mx``: f32
+        [B] host ranges; ``target``: f32 [B] error targets already
+        tightened by the per-frame quantisation error; ``qbase``: allowed
+        violating fraction of the base layer (j2k_codec.h:469).  All
+        tensors on this codec's device."""
+        dataq, const, dc, ci = self._hostq_prelude(u, mn, mx)
+        return self._eb_core(dataq, mn, mx, const, dc, ci, target,
+                             float(qbase))
+
+    def _eb_core(self, data_ref, mn, mx, const, dc, ci, target, qbase):
+        an_b = bp.analyze(ci, self.base.spec)
+        counts_b = bp.segment_counts(an_b, self.base.spec)
+        cand_b = bp.candidate_bits(counts_b, self.base.spec)
+        ev_b = _Eval(self.base, self.h, self.w, ci, data_ref, target, "base",
+                     dc, mn, mx)
+        bits_q, feas_q, maxd_q, bs_q, ks_q = self._search_truncation(
+            self.base, cand_b, ev_b, qbase)
+        # pure fallback: the same embedded stream at quantile 0
+        # (j2k_codec.h:668-695) — another prefix of the same arena
+        bits_pure, feas_pure, _, bs_pure, ks_pure = self._search_truncation(
+            self.base, cand_b, ev_b, 0.0)
+        use_mq, km_q, mbits_q, maxd_qm, drop_q, segs_q = self._search_mask(
+            self.base, ev_b, qbase, bs_q, bits_q, feas_q, counts_b)
+        _, km_pure, mbits_pure, _, _, segs_pure = self._search_mask(
+            self.base, ev_b, 0.0, bs_pure, bits_pure, feas_pure, counts_b)
+        del ev_b  # frees the base layer's workspace
+
+        # the decoder's view of the base layer is the MASKED reconstruction
+        # when the mask wins; the residual is computed against it
+        coef_q = self._recon_at(an_b, self.base, bs_q, ks_q)
+        if self._mask_enabled(self.base):
+            coef_q = torch.where(
+                use_mq[:, None, None],
+                bp.recon_masked(an_b, bs_q, drop_q, self.base.spec), coef_q)
+            maxd_q = torch.where(use_mq, maxd_qm, maxd_q)
+        base_rec = self._base_recon(coef_q, mn, mx, dc)
+        skip_residual = maxd_q <= 0  # "Skip Residual 1" (j2k_codec.h:584)
+
+        rmin, rmax, dcr, cir = self._resid_transform(data_ref - base_rec)
+        an_r = bp.analyze(cir, self.resid.spec)
+        counts_r = bp.segment_counts(an_r, self.resid.spec)
+        ev_r = _Eval(self.resid, self.h, self.w, cir, data_ref, target,
+                     "resid", dcr, rmin, rmax, base_rec=base_rec)
+        resid_bits, resid_feas, _, bs_r, ks_r = self._search_truncation(
+            self.resid, bp.candidate_bits(counts_r, self.resid.spec), ev_r,
+            0.0)
+        _, km_r, mbits_r, _, _, segs_r = self._search_mask(
+            self.resid, ev_r, 0.0, bs_r, resid_bits, resid_feas, counts_r)
+
+        return EncodeResult(
+            mn=mn, mx=mx, const=const, dc_b=dc, max_step_b=an_b.max_step,
+            base_coef=ci, base_bits_q=bits_q, base_bits_pure=bits_pure,
+            base_feasible_pure=feas_pure,
+            bs_q=bs_q, ks_q=ks_q, bs_pure=bs_pure, ks_pure=ks_pure,
+            bs_r=bs_r, ks_r=ks_r,
+            km_q=km_q, km_pure=km_pure, km_r=km_r,
+            mbits_q=mbits_q, mbits_pure=mbits_pure, mbits_r=mbits_r,
+            segs_q=segs_q, segs_pure=segs_pure, segs_r=segs_r,
+            rmin=rmin, rmax=rmax, dc_r=dcr, max_step_r=an_r.max_step,
+            resid_coef=cir, resid_bits=resid_bits,
+            resid_feasible=resid_feas, skip_residual=skip_residual)
+
+    # ---------------- decode ----------------
+
+    def recon(self, coef_b, mn, mx, dc, has_resid, coef_r, rmin, rmax, dcr):
+        """Dequantise + inverse transform from float coefficient planes
+        (the structural bitstream decode runs in the native host coder)."""
+        out = self._base_recon(coef_b, mn, mx, dc)
+        resid = self._resid_recon(coef_r, rmin, rmax, dcr)
+        return out + torch.where(has_resid[:, None, None], resid, 0.0)
+
+    @staticmethod
+    def _unpack16_coef(v16, bend):
+        """Inverse of the native u16 decode packing: sign<<15 | last_off<<14
+        | (mag >> b_end) -> float midpoint coefficients.  ``v16``: int32
+        tensor holding the u16 values."""
+        mag = (v16 & 0x3FFF) << bend[:, None, None]
+        last = bend[:, None, None] + ((v16 >> 14) & 1)
+        half = ((torch.ones_like(last) << last) - 1).float() * 0.5
+        half = torch.where((mag > 0) & (last > 0), half, 0.0)
+        rec = torch.where(mag > 0, mag.float() + half, 0.0)
+        return torch.where((v16 & 0x8000) != 0, -rec, rec)  # bit 15 = sign
+
+    def recon_packed(self, v16_b, bend_b, mn, mx, dc, has_resid, v16_r,
+                     bend_r, rmin, rmax, dcr):
+        """Reconstruct frames from the native coder's packed u16 state."""
+        return self.recon(self._unpack16_coef(v16_b, bend_b), mn, mx, dc,
+                          has_resid, self._unpack16_coef(v16_r, bend_r),
+                          rmin, rmax, dcr)

@@ -1,0 +1,163 @@
+"""Candidate evaluation of the truncation and chunk-mask searches (kernel K1).
+
+Counterpart of ``ebcc_tpu/ops/pallas_eval.py::eval_stats``, scalar-target
+variants: kind ("base" | "resid" reconstruction tail) x mode ("trunc"
+prefix candidates | "masked" chunk-mask candidates).  Per frame, one
+candidate is reconstructed from the integer coefficients, inverse
+transformed and reduced to (max excess, violation count) over the valid
+h x w region.
+
+:func:`eval_stats` launches the CUDA kernel (``csrc/fused_eval.cu``) for
+CUDA tensors and runs :func:`eval_stats_ref`, the plain torch version, for
+CPU tensors.  Both follow the native codec's arithmetic site by site (fma
+sites, reciprocal multiplies), so their feasibility decisions agree.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..runtime import cuda
+from . import bitplane as bp
+from . import dwt, frame, weights
+
+_KINDS = ("base", "resid")
+_MODES = ("trunc", "masked")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+KERNEL = cuda.Kernel(
+    "fused_eval", "ebcc_fused_eval",
+    [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+     _P])
+
+
+# the CUDA kernel's shared-memory tiles: a 32-column strip of the full
+# height, and at least one whole row (csrc/fused_eval.cu)
+MAX_ROWS = 227 * 1024 // (32 * 4)
+MAX_COLS = 96 * 1024 // 4
+
+
+def supported(hp: int, wp: int, levels: int) -> bool:
+    """Every level's sub-shape even and >= 4 in both dims (the lifting's
+    requirement; always true for padded codec geometries), and the frame
+    within the CUDA kernel's tiles (hp <= 1816, wp <= 24576)."""
+    if hp > MAX_ROWS or wp > MAX_COLS:
+        return False
+    for i in range(levels):
+        hh, ww = hp >> i, wp >> i
+        if hh % 2 or ww % 2 or hh < 4 or ww < 4:
+            return False
+    return True
+
+
+def _params(batch, device, b, js, jr, dropmask, dc, lo, hi, tgt):
+    # Python numbers become device fills, never host-to-device copies
+    # (a pageable copy would synchronise the host with the device)
+    def col(v, dtype):
+        if torch.is_tensor(v):
+            return v.to(device=device, dtype=dtype).expand(batch)
+        return torch.full((batch,), 0 if v is None else v, dtype=dtype,
+                          device=device)
+
+    def icol(v):
+        return col(v, torch.int32)
+
+    def fcol(v):
+        return col(v, torch.float32)
+
+    iparams = torch.stack([icol(b), icol(js), icol(jr), icol(dropmask)], 1)
+    fparams = torch.stack([fcol(dc), fcol(lo), fcol(hi), fcol(tgt)], 1)
+    return iparams.contiguous(), fparams.contiguous()
+
+
+def eval_stats_ref(ci, ref, b, *, kind: str, mode: str, levels: int,
+                   nchunks: int, h: int, w: int, js=None, jr=None,
+                   dropmask=None, dc=None, lo=None, hi=None, tgt=None,
+                   base_rec=None):
+    """Plain torch version of :func:`eval_stats` (same arguments): the
+    closed-form reconstruction (``bitplane.recon_truncated`` /
+    ``recon_masked``), the layer's reconstruction tail and the error
+    reduction.  Returns (maxd f32 [B], count int32 [B])."""
+    batch, hp, wp = ci.shape
+    iparams, fparams = _params(batch, ci.device, b, js, jr, dropmask, dc,
+                               lo, hi, tgt)
+    b, js, jr, dm = iparams.unbind(1)
+    dc, lo, hi, tgt = fparams.unbind(1)
+    spec = bp.CoderSpec(height=hp, width=wp, group_levels=levels + 1,
+                        nplanes=0, nchunks=nchunks)
+    mag = ci.abs()
+    an = bp.Analysis(mag, ci < 0, bp._msb(mag), (), None)
+    if mode == "masked":
+        bits = torch.arange(nchunks, dtype=torch.int32, device=ci.device)
+        drop = ((dm[:, None] >> bits) & 1) == 1
+        rec = bp.recon_masked(an, b, drop, spec)
+    else:
+        rec = bp.recon_truncated(an, b, sig_chunks=js, refine_chunks=jr,
+                                 spec=spec)
+    wb = torch.from_numpy(weights.weight_array(hp, wp, levels)).to(ci.device)
+    y = dwt.idwt2d_multi(rec / wb, levels) + dc[:, None, None]
+    y = frame.crop(y, h, w)
+    if kind == "base":
+        out = frame.unscale(y.clamp(0.0, frame.U16_MAX), lo, hi,
+                            frame.RECIP_U16)
+    else:
+        out = frame.crop(base_rec, h, w) + frame.unscale(
+            y.clamp(0.0, frame.RESID_SCALE), lo, hi, frame.RECIP_RS)
+    err = (frame.crop(ref, h, w) - out).abs() - tgt[:, None, None]
+    return (err.flatten(1).amax(-1),
+            (err > 0).flatten(1).sum(-1).to(torch.int32))
+
+
+def eval_stats(ci, ref, b, *, kind: str, mode: str, levels: int,
+               nchunks: int, h: int, w: int, js=None, jr=None,
+               dropmask=None, dc=None, lo=None, hi=None, tgt=None,
+               base_rec=None, workspace=None):
+    """(max excess, violation count) of one candidate per frame.
+
+    ``ci``: int32 [B, hp, wp] integer coefficients; ``ref``: f32
+    [B, hp, wp] comparison field (entries past (h, w) are ignored);
+    ``b``/``js``/``jr``/``dropmask``: per-frame int candidates; ``dc``:
+    per-frame DC; ``lo``/``hi``: (mn, mx) for kind="base", (rmin, rmax)
+    for kind="resid"; ``tgt``: per-frame error target; ``base_rec``: f32
+    [B, hp, wp] fixed base reconstruction (kind="resid" only);
+    ``workspace``: optional f32 [B, hp, wp] scratch the CUDA kernel
+    reuses (allocated per call when None).  Returns (maxd f32 [B], count
+    int32 [B]).
+    """
+    if kind not in _KINDS or mode not in _MODES:
+        raise ValueError(f"unknown variant kind={kind!r} mode={mode!r}")
+    if (kind == "resid") != (base_rec is not None):
+        raise ValueError("base_rec is required for kind='resid' only")
+    if ci.device.type == "cpu":
+        return eval_stats_ref(ci, ref, b, kind=kind, mode=mode,
+                              levels=levels, nchunks=nchunks, h=h, w=w,
+                              js=js, jr=jr, dropmask=dropmask, dc=dc, lo=lo,
+                              hi=hi, tgt=tgt, base_rec=base_rec)
+    batch, hp, wp = ci.shape
+    if not supported(hp, wp, levels) or h > hp or w > wp:
+        raise ValueError(f"eval_stats: unsupported geometry {hp}x{wp}, "
+                         f"{levels} levels, valid {h}x{w}")
+    dev = ci.device
+    shape = (batch, hp, wp)
+    cuda.require_cuda_tensor(ci, "ci", torch.int32, shape)
+    cuda.require_cuda_tensor(ref, "ref", torch.float32, shape)
+    if base_rec is not None:
+        cuda.require_cuda_tensor(base_rec, "base_rec", torch.float32, shape)
+    if workspace is None:
+        workspace = torch.empty(shape, dtype=torch.float32, device=dev)
+    cuda.require_cuda_tensor(workspace, "workspace", torch.float32, shape)
+    iparams, fparams = _params(batch, dev, b, js, jr, dropmask, dc, lo, hi,
+                               tgt)
+    peaks = np.ascontiguousarray(weights.subband_weights(levels))
+    stats = torch.empty((batch, 2), dtype=torch.int32, device=dev)
+    KERNEL.launch(dev, ci.data_ptr(), ref.data_ptr(),
+                  None if base_rec is None else base_rec.data_ptr(),
+                  iparams.data_ptr(), fparams.data_ptr(), peaks.ctypes.data,
+                  batch, hp, wp, levels, nchunks, h, w, _KINDS.index(kind),
+                  _MODES.index(mode), workspace.data_ptr(), stats.data_ptr())
+    key = stats[:, 0]
+    maxd = torch.where(key >= 0, key, key ^ 0x7FFFFFFF).view(torch.float32)
+    return maxd, stats[:, 1]

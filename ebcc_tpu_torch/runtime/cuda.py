@@ -1,0 +1,99 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Each kernel is one CUDA C++ source in ``csrc/`` with a plain C interface.
+On first use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
+shared library under ``ebcc_tpu_torch/build/`` (keyed on a hash of the
+source and flags) and loaded with ctypes.  Every C entry launches on the
+stream it is given, allocates nothing and returns ``cudaGetLastError()``;
+:meth:`Kernel.launch` raises when that is not ``cudaSuccess``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import time
+
+import torch
+
+from . import build
+
+# -fmad=false: nvcc contracts no multiply-add on its own, so the only fused
+# multiply-adds are the explicit __fmaf_rn calls at the native codec's fma
+# sites (never build these sources with --use_fast_math)
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME)")
+    return found
+
+
+class Kernel:
+    """One CUDA source: its lazily built library and its launch count.
+
+    ``launches`` counts calls of :meth:`launch`, the only place the
+    wrapper starts the kernel; a caller resets it to 0 to count one run.
+    """
+
+    def __init__(self, name: str, entry: str, argtypes: list):
+        self.name, self.entry, self.argtypes = name, entry, argtypes
+        self.launches = 0
+        self.build_seconds = None
+        self._lib = None
+
+    @property
+    def source(self) -> str:
+        return os.path.join(build.CSRC_DIR, f"{self.name}.cu")
+
+    def lib(self) -> ctypes.CDLL:
+        if self._lib is None:
+            t0 = time.perf_counter()
+            key = build.source_key([self.source], NVCC_FLAGS)
+
+            def compile_into(tmp):
+                so = os.path.join(tmp, f"lib{self.name}.so")
+                build.run([[nvcc(), *NVCC_FLAGS, "-o", so, self.source]])
+                return so
+
+            lib = ctypes.CDLL(build.cached_library(self.name, key,
+                                                   compile_into))
+            fn = getattr(lib, self.entry)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            lib.ebcc_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.ebcc_cuda_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+            self.build_seconds = time.perf_counter() - t0
+        return self._lib
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Call the C entry on ``device``'s current stream (the stream is
+        appended as the last argument)."""
+        lib = self.lib()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, self.entry)(device.index or 0, *args, stream)
+        self.launches += 1
+        if rc != 0:
+            msg = lib.ebcc_cuda_error_string(rc).decode()
+            raise RuntimeError(f"{self.name}: launch failed: {msg} ({rc})")
+
+
+def require_cuda_tensor(t: torch.Tensor, name: str, dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of dtype and shape."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,203 @@
+"""The port's codec end to end on the CPU, against the JAX package and
+the native CPU codec.
+
+* containers byte-identical to ``ebcc_tpu.compress`` (device encode on
+  the CPU backend) and to the native CPU encoder;
+* blobs cross both ways: the JAX package, the port and the native decoder
+  each decode the others' blobs within the bound, and the port's and
+  JAX's reconstructions agree to the documented device-vs-native gap;
+* configurations cross; the package imports without JAX; asking for CUDA
+  without it raises.
+"""
+
+import dataclasses
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import ebcc_tpu
+
+import ebcc_tpu_torch
+from ebcc_tpu_torch import api
+from ebcc_tpu_torch.codec import container
+from ebcc_tpu_torch.codec.config import EBCCConfig, ResidualMode
+from ebcc_tpu_torch.runtime import cpu_decoder, cpu_encoder
+from ebcc_tpu_torch.runtime import native
+
+B, H, W = 2, 96, 160
+# the geometry and config of tests/test_pallas_eval.py, so the JAX
+# pipeline compiles once for the suite (persistent cache)
+JAX_CFG = ebcc_tpu.EBCCConfig(
+    mode=ebcc_tpu.ResidualMode.MAX_ERROR, error=0.25, base_cr=200,
+    max_batch=B, use_pallas_eval=False, encode_backend="device",
+    decode_backend="device")
+CASES = [(ResidualMode.MAX_ERROR, 0.25), (ResidualMode.RELATIVE_ERROR, 0.004)]
+
+
+def _data(n=B, seed=0, noise=0.3):
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:H, 0:W]
+    base = (260 + 25 * np.sin(y / H * np.pi) *
+            np.cos(x / W * 2 * np.pi)).astype(np.float32)
+    return np.stack([base + rng.normal(0, noise, base.shape)
+                     .astype(np.float32) for _ in range(n)])
+
+
+def _bound(data, mode, err):
+    if mode == ResidualMode.RELATIVE_ERROR:
+        rng = data.max(axis=(1, 2)) - data.min(axis=(1, 2))
+        return (np.float32(err) * rng)[:, None, None]
+    return err
+
+
+def _configs(mode, err):
+    jcfg = dataclasses.replace(JAX_CFG, mode=ebcc_tpu.ResidualMode(int(mode)),
+                               error=err)
+    return EBCCConfig(**dataclasses.asdict(jcfg)), jcfg
+
+
+@pytest.fixture(scope="module")
+def blobs():
+    """Per case: (data, port blob, JAX blob)."""
+    data = _data()
+    out = {}
+    for mode, err in CASES:
+        cfg, jcfg = _configs(mode, err)
+        out[mode] = (ebcc_tpu_torch.compress(data, cfg, device="cpu"),
+                     ebcc_tpu.compress(data, jcfg))
+    return data, out
+
+
+@pytest.mark.parametrize("mode", [m for m, _ in CASES],
+                         ids=lambda m: m.name)
+def test_containers_byte_identical_to_jax(blobs, mode):
+    _, out = blobs
+    ours, theirs = out[mode]
+    assert ours == theirs
+
+
+@pytest.mark.parametrize("mode,err", CASES, ids=lambda v: str(v))
+def test_blobs_cross_decode_within_bound(blobs, mode, err):
+    data, out = blobs
+    ours, theirs = out[mode]
+    _, jcfg = _configs(mode, err)
+    bound = _bound(data, mode, err)
+    rec_port = ebcc_tpu_torch.decompress(theirs, device="cpu")
+    rec_jax = np.asarray(ebcc_tpu.decompress(ours, jcfg))
+    rec_native = cpu_decoder.decompress(ours)
+    for rec in (rec_port, rec_jax, rec_native):
+        assert rec.shape == data.shape and np.isfinite(rec).all()
+        assert np.all(np.abs(rec - data) <= bound)
+    # device-vs-native decoder gap (ebcc_tpu/codec/config.py decode_backend)
+    assert np.abs(rec_port - rec_jax).max() <= 2e-3
+    # the port's decode follows the native decoder's arithmetic
+    np.testing.assert_array_equal(
+        ebcc_tpu_torch.decompress(ours, device="cpu"), rec_native)
+
+
+def test_byte_identical_to_native_encoder_partial_batch_and_const():
+    """Three frames at max_batch=2 (the last batch holds one frame), one
+    of them constant."""
+    data = _data(3, seed=5)
+    data[1] = 7.25
+    cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.1, base_cr=100,
+                     max_batch=2)
+    blob = ebcc_tpu_torch.compress(data, cfg, device="cpu")
+    assert blob == cpu_encoder.compress(data, cfg)
+    hdr = container.unpack_frame(container.unpack_blob(blob)[1])[0]
+    assert hdr.flags & container.FLAG_CONST
+    rec = ebcc_tpu_torch.decompress(blob, device="cpu")
+    assert np.abs(rec - data).max() <= 0.1
+
+
+def test_residual_layer_matches_native_and_jax_base(monkeypatch):
+    """Frames that keep a (chunk-masked) residual layer: with the pure-
+    base fallback disabled and a 1 % base quantile, every frame carries a
+    residual stream, packed, spliced and zstd'd on the host.
+
+    The port equals the native encoder byte for byte.  The JAX package
+    computes the residual from a base reconstruction that XLA fuses with
+    other fma choices, so its residual stream can differ (one frame here:
+    rmax moves by 1.5e-5); its base layer is identical."""
+    monkeypatch.setenv("EBCC_DISABLE_PURE_JP2_FALLBACK", "1")
+    data = _data()
+    cfg, jcfg = _configs(ResidualMode.MAX_ERROR, 0.25)
+    blob = ebcc_tpu_torch.compress(data, cfg, device="cpu", qbase=1e-2)
+    frames = [container.unpack_frame(f) for f in container.unpack_blob(blob)]
+    assert all(h.flags & container.FLAG_RESID for h, *_ in frames)
+    assert any(h.resid_mask_plane != container.MASK_NONE
+               for h, *_ in frames)
+    assert blob == cpu_encoder.compress(data, cfg, qbase=1e-2)
+    jframes = [container.unpack_frame(f) for f in container.unpack_blob(
+        ebcc_tpu.compress(data, jcfg, qbase=1e-2))]
+    base_fields = ("flags", "base_nbits", "max_step_b", "dc_b",
+                   "base_mask_plane", "base_keep_mask")
+    for (h, _, bs, _), (hj, _, bsj, _) in zip(frames, jframes):
+        assert [getattr(h, f) for f in base_fields] == \
+            [getattr(hj, f) for f in base_fields]
+        assert bs == bsj
+    rec = ebcc_tpu_torch.decompress(blob, device="cpu")
+    np.testing.assert_array_equal(rec, cpu_decoder.decompress(blob))
+    assert np.abs(rec - data).max() <= 0.25
+
+
+def test_deep_decode_takes_float_coefficient_path(monkeypatch):
+    """More than 14 decoded planes do not fit the packed u16 state: the
+    decode goes through the native float32 coefficients instead."""
+    data = _data(1, seed=6)
+    cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=2e-3, max_batch=1)
+    blob = ebcc_tpu_torch.compress(data, cfg, device="cpu")
+    assert blob == cpu_encoder.compress(data, cfg)
+    calls = []
+    real = native.coder_decode_batch
+    monkeypatch.setattr(native, "coder_decode_batch",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    rec = ebcc_tpu_torch.decompress(blob, device="cpu")
+    assert calls
+    np.testing.assert_array_equal(rec, cpu_decoder.decompress(blob))
+    assert np.abs(rec - data).max() <= 2e-3
+
+
+def test_config_round_trips_from_jax():
+    jcfg = ebcc_tpu.EBCCConfig(mode=ebcc_tpu.ResidualMode.RELATIVE_ERROR,
+                               error=0.01, base_cr=50, nchunks=4,
+                               max_batch=3)
+    cfg = EBCCConfig(**dataclasses.asdict(jcfg))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert cfg.mode == ResidualMode.RELATIVE_ERROR
+    assert [f.name for f in dataclasses.fields(cfg)] == \
+        [f.name for f in dataclasses.fields(jcfg)]
+    assert {m.name: int(m) for m in ResidualMode} == \
+        {m.name: int(m) for m in ebcc_tpu.ResidualMode}
+
+
+def test_imports_without_jax():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['ebcc_tpu'] = None; import ebcc_tpu_torch; "
+            "import ebcc_tpu_torch.runtime.cpu_encoder, "
+            "ebcc_tpu_torch.runtime.cpu_decoder; "
+            "assert 'jax.numpy' not in sys.modules")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_cuda_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = _data(1)
+    cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ebcc_tpu_torch.compress(data, cfg, device="cuda")
+    blob = ebcc_tpu_torch.compress(data, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ebcc_tpu_torch.decompress(blob, device="cuda")
+
+
+def test_unsupported_modes_raise():
+    data = _data(1)
+    for cfg in (EBCCConfig(mode=ResidualMode.NONE),
+                EBCCConfig(mode=ResidualMode.POINTWISE_MAX_ERROR),
+                EBCCConfig(error=0.5, mask_search="union")):
+        with pytest.raises(ValueError):
+            api.compress(data, cfg, device="cpu")

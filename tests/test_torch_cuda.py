@@ -1,0 +1,122 @@
+"""The port's CUDA kernels and its cuda path against their plain versions,
+on a card.
+
+Every test here is marked ``cuda`` and skips without a CUDA device.  The
+file imports neither jax nor ebcc_tpu, so it also runs where only the
+port's dependencies are installed:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import ebcc_tpu_torch
+from ebcc_tpu_torch.codec.config import EBCCConfig, ResidualMode
+from ebcc_tpu_torch.codec.pipeline import FrameCodec, _Eval
+from ebcc_tpu_torch.ops import bitplane as bp
+from ebcc_tpu_torch.ops import fused_eval as fe
+from ebcc_tpu_torch.ops import level0_counts as l0
+from ebcc_tpu_torch.runtime import cpu_encoder, native
+
+pytestmark = pytest.mark.cuda
+
+B, H, W = 4, 96, 160
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _field(n, h=H, w=W, seed=0):
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    base = (260 + 25 * np.sin(y / h * np.pi) *
+            np.cos(x / w * 2 * np.pi)).astype(np.float32)
+    return np.stack([base + rng.normal(0, 0.3, base.shape)
+                     .astype(np.float32) for _ in range(n)])
+
+
+def test_level0_counts_kernel_matches_plain(card):
+    rng = np.random.default_rng(1)
+    for h, w, g, j, p in [(768, 1472, 6, 8, 22), (736, 1440, 4, 8, 14),
+                          (96, 160, 4, 8, 14)]:
+        spec = bp.CoderSpec(height=h, width=w, group_levels=g, nplanes=p,
+                            nchunks=j)
+        coefs = rng.integers(-(1 << 18), 1 << 18, (3, h, w)).astype(np.int32)
+        coefs[:, ::3] = 0
+        an = bp.analyze(torch.from_numpy(coefs).to(card), spec)
+        out = l0.level0_counts(an.msb, an.smax[1], p, j)
+        assert torch.equal(out, l0.level0_counts_ref(an.msb, an.smax[1], p,
+                                                     j))
+
+
+def _layers(dev):
+    cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.25, base_cr=200,
+                     max_batch=B)
+    c = FrameCodec(H, W, cfg, dev)
+    u, mn, mx, maxq = native.scale_u16_batch(_field(B))
+    mn, mx = torch.from_numpy(mn).to(dev), torch.from_numpy(mx).to(dev)
+    dataq, _, dc, ci = c._hostq_prelude(
+        torch.from_numpy(u.astype(np.int32)).to(dev), mn, mx)
+    tgt = torch.from_numpy(np.full(B, 0.25, np.float32) - maxq).to(dev)
+    an = bp.analyze(ci, c.base.spec)
+    coef = bp.recon_truncated(an, torch.full((B,), 8, dtype=torch.int32,
+                                             device=dev), spec=c.base.spec)
+    base_rec = c._base_recon(coef, mn, mx, dc)
+    rmin, rmax, dcr, cir = c._resid_transform(dataq - base_rec)
+    return [(c.base, _Eval(c.base, H, W, ci, dataq, tgt, "base", dc, mn,
+                           mx)),
+            (c.resid, _Eval(c.resid, H, W, cir, dataq, tgt, "resid", dcr,
+                            rmin, rmax, base_rec=base_rec))]
+
+
+def test_eval_stats_kernel_matches_plain(card):
+    vec = torch.arange(B, dtype=torch.int32, device=card)
+    for geom, ev in _layers(card):
+        a = dict(ev.args)
+        ci, ref = a.pop("ci"), a.pop("ref")
+        p, j = geom.spec.nplanes, geom.spec.nchunks
+        cands = [("trunc", dict(js=j, jr=j)), ("trunc", dict(js=3, jr=0)),
+                 ("trunc", dict(js=j, jr=5)),
+                 ("masked", dict(dropmask=vec * 37 % (1 << j)))]
+        for mode, cand in cands:
+            for b0 in range(p):
+                b = (vec + b0) % p
+                mk, ck = fe.eval_stats(ci, ref, b, mode=mode, **a, **cand)
+                mr, cr = fe.eval_stats_ref(ci, ref, b, mode=mode, **a,
+                                           **cand)
+                assert torch.equal(ck, cr)
+                assert torch.equal(mk <= 0, mr <= 0)
+                torch.testing.assert_close(mk, mr, rtol=1e-5, atol=1e-4)
+
+
+def test_eval_stats_rejects_bad_tensors(card):
+    geom, ev = _layers(card)[0]
+    a = dict(ev.args)
+    ci, ref = a.pop("ci"), a.pop("ref")
+    b = torch.zeros(B, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):  # wrong dtype
+        fe.eval_stats(ci.float(), ref, b, mode="trunc", **a)
+    with pytest.raises(ValueError):  # not contiguous
+        fe.eval_stats(ci.transpose(1, 2).contiguous().transpose(1, 2), ref,
+                      b, mode="trunc", **a)
+    with pytest.raises(ValueError):  # mixed devices
+        fe.eval_stats(ci, ref.cpu(), b, mode="trunc", **a)
+
+
+def test_cuda_compress_matches_cpu_and_native(card):
+    data = _field(5, seed=3)
+    for mode, err in ((ResidualMode.MAX_ERROR, 0.25),
+                      (ResidualMode.RELATIVE_ERROR, 0.004)):
+        cfg = EBCCConfig(mode=mode, error=err, base_cr=200, max_batch=2)
+        blob = ebcc_tpu_torch.compress(data, cfg, device="cuda")
+        assert blob == ebcc_tpu_torch.compress(data, cfg, device="cpu")
+        assert blob == cpu_encoder.compress(data, cfg)
+        rec = ebcc_tpu_torch.decompress(blob, cfg, device="cuda")
+        np.testing.assert_array_equal(
+            rec, ebcc_tpu_torch.decompress(blob, cfg, device="cpu"))
