@@ -2,21 +2,31 @@
 
     python3 chip_smoke.py
 
-Builds the native host runtime and both CUDA kernels from this checkout,
-holds each kernel against its plain torch version on the card at the
-shapes of the main path, drives the main path once (error-bounded
-compress + decompress of 32 frames of 721x1440 float32, the bench recipe
-of bench.py, on "cuda"), checks the result against the bound and against
-the native CPU codec, and times encode, decode and each kernel.  Any
-failed check raises, and the script exits non-zero without printing a
-result.  The last two lines of standard output are JSON: the kernels'
-record, then ``{"ok": true, "device": {...}}``.
+Builds the native host runtime and the three CUDA kernels from this
+checkout (one nvcc per kernel, all started together), holds each kernel
+against its plain torch version on the card at the shapes of the main
+paths, and drives two paths once each through the user entry points, on
+"cuda", with 32 frames of 721x1440 float32 (the bench recipe of bench.py):
+
+* MAX_ERROR compress + decompress (error 0.5, batches of 16);
+* POINTWISE_MAX_ERROR compress + decompress against a per-point bound
+  (a synthetic 0.5-degree ensemble spread upsampled to 721x1440 by
+  ``dataprep.upsample_3t_2s``), then ``DirectCompressor`` over the same
+  frames as two slices of 16.
+
+It checks every result against the bound and against the native CPU codec
+(bytes of the encoder, bits of the decoder), and times the paths and each
+kernel.  Any failed check raises, and the script exits non-zero without
+printing a result.  The last two lines of standard output are JSON: the
+kernels' record, then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -26,6 +36,10 @@ import torch
 
 N_FRAMES, BATCH, H, W = 32, 16, 721, 1440
 ERROR = 0.5
+# the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def phase(name):
@@ -49,6 +63,21 @@ def bench_frames(n: int, seed: int = 0) -> np.ndarray:
         np.float32) for _ in range(n)])
 
 
+def synthetic_spread(seed: int = 1) -> np.ndarray:
+    """An ensemble spread on the ensemble's 0.5-degree grid, f32
+    [11, 361, 720] (no ERA5 spread file in the repo): a smooth positive
+    field of 0.1-0.6 data units, bands in latitude and longitude drifting
+    with time, times (1 + 0.1 N(0, 1)), clipped at 0.05."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(11)[:, None, None]
+    lat = np.deg2rad(np.linspace(90, -90, 361))[None, :, None]
+    lon = np.deg2rad(np.arange(720) * 0.5)[None, None, :]
+    smooth = (0.35 + 0.15 * np.sin(2 * lat + 0.3 * t) * np.cos(3 * lon) +
+              0.08 * np.cos(5 * lat) + 0.02 * np.sin(7 * lon - 0.5 * t))
+    noisy = smooth * (1 + 0.1 * rng.standard_normal(smooth.shape))
+    return np.maximum(noisy, 0.05).astype(np.float32)
+
+
 def cuda_ms(fn, reps: int = 10) -> float:
     """Mean device milliseconds of ``fn()`` over ``reps`` warm runs."""
     fn()
@@ -63,20 +92,29 @@ def cuda_ms(fn, reps: int = 10) -> float:
 
 
 def kernel_times(fn):
-    """Device time by kernel of one ``fn()`` call under torch.profiler:
-    ({short kernel name: (microseconds, launches)}, wall microseconds)."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time by kernel of one ``fn()`` call under torch.profiler,
+    after one traced warm-up call whose events are dropped (a cold trace
+    can miss its first kernels): ({short kernel name: (microseconds,
+    launches)}, wall microseconds)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e6
+        prof.step()
     out = {}
     for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        # the step's own span sits on the device track too: not a kernel
+        if (ev.device_type != torch.autograd.DeviceType.CUDA or
+                ev.name.startswith("ProfilerStep")):
             continue
         name = ev.name.replace("(anonymous namespace)::", "")
         name = name.split("<")[0].split("(")[0].split("::")[-1].split()[-1]
@@ -87,6 +125,52 @@ def kernel_times(fn):
     return out, wall
 
 
+OURS_K = ("compose", "eval_lift_cols", "eval_lift_rows", "tail_reduce",
+          "idwt_lift_cols", "idwt_lift_rows", "level0_hist", "level0_finalize")
+
+
+def print_profile(label, kernels, wall_us, tag):
+    busy = sum(us for us, _ in kernels.values())
+    in_k = sum(us for k, (us, _) in kernels.items() if k in OURS_K)
+    print(f"{label} under the profiler: wall {wall_us / 1e3:.2f} ms, device "
+          f"busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), of "
+          f"which the port's kernels {in_k / 1e3:.2f} ms {tag}")
+    for name, (us, n) in sorted(kernels.items(),
+                                key=lambda kv: -kv[1][0])[:12]:
+        print(f"  {us / 1e3:8.3f} ms  {n:5d}x  {name}")
+
+
+def bound(nbytes: float, ops: float):
+    """(least ms, "bytes" | "operations"): the larger of the bytes over
+    the HBM rate and the operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def lifting_ops(batch, hp, wp, levels) -> int:
+    """Float operations of the L-level inverse CDF 9/7 on [batch, hp, wp]:
+    per 1-D pass over n samples, n scaling multiplies and four lifting
+    steps of an add and an fma (3 operations) on n/2 samples each: 7n; a
+    2-D level is a column and a row pass over its hh x ww region."""
+    return batch * sum(14 * (hp >> i) * (wp >> i) for i in range(levels))
+
+
+def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-element distance in float32 units in the last place."""
+    def key(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i >= 0, i, -(i & 0x7FFFFFFF))
+    return (key(a) - key(b)).abs()
+
+
+def direct_patch_count(blob: bytes) -> int:
+    """Patched points of a DirectCompressor blob (EBTE layout)."""
+    _, _, ndim, blen = struct.unpack_from("<4sBBQ", blob, 0)
+    off = struct.calcsize("<4sBBQ") + 4 * ndim + blen
+    return struct.unpack_from("<BII", blob, off)[1]
+
+
 def main() -> int:
     print("torch", torch.__version__, "cuda", torch.version.cuda)
     if not torch.cuda.is_available():
@@ -95,37 +179,61 @@ def main() -> int:
     print(card)
 
     import ebcc_tpu_torch
-    from ebcc_tpu_torch import EBCCConfig, ResidualMode
-    from ebcc_tpu_torch.api import _scale_u16_host, _upload_u16
+    from ebcc_tpu_torch import (DirectCompressor, EBCCConfig, ResidualMode,
+                                dataprep)
+    from ebcc_tpu_torch.api import (_device_batch, _scale_u16_host,
+                                    _upload_u16, pointwise_targets)
     from ebcc_tpu_torch.codec import container
     from ebcc_tpu_torch.codec.pipeline import FrameCodec, _Eval
     from ebcc_tpu_torch.ops import bitplane as bp
+    from ebcc_tpu_torch.ops import dwt
     from ebcc_tpu_torch.ops import fused_eval as fe
+    from ebcc_tpu_torch.ops import idwt
     from ebcc_tpu_torch.ops import level0_counts as l0
-    from ebcc_tpu_torch.runtime import cpu_decoder, cpu_encoder, native
+    from ebcc_tpu_torch.runtime import cpu_decoder, cpu_encoder, cuda, native
 
     assert "jax" not in sys.modules and "ebcc_tpu" not in sys.modules
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     tag = f"[{card}]"
+    kernels = (l0.KERNEL, fe.KERNEL, idwt.KERNEL)
+
+    def reset_counts():
+        for k in kernels:
+            k.launches = 0
+
+    def read_counts():
+        return {k.name: k.launches for k in kernels}
 
     phase("build")
     t0 = time.perf_counter()
     native.lib()
     print(f"native host runtime: {time.perf_counter() - t0:.1f} s "
           f"({native.build_library()})")
-    for k in (l0.KERNEL, fe.KERNEL):
-        k.lib()
+    t0 = time.perf_counter()
+    cuda.build_all(kernels)
+    for k in kernels:
         print(f"{k.name}: {k.build_seconds:.1f} s")
+    print(f"all three kernels, built together: "
+          f"{time.perf_counter() - t0:.1f} s")
 
     data = bench_frames(N_FRAMES)
+    eb = dataprep.upsample_3t_2s(synthetic_spread())[:N_FRAMES]
+    print(f"per-point bounds {eb.shape}: {float(eb.min())!r} .. "
+          f"{float(eb.max())!r}, mean {float(eb.mean()):.4f}")
     cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=ERROR, base_cr=100,
                      max_batch=BATCH)
+    cfg_pw = EBCCConfig(mode=ResidualMode.POINTWISE_MAX_ERROR, base_cr=100,
+                        max_batch=BATCH)
     codec = FrameCodec(H, W, cfg, dev)
     u, mn, mx, maxq = _scale_u16_host(data[:BATCH])
     u_dev = _upload_u16(u, dev)
     mn_d, mx_d = torch.from_numpy(mn).to(dev), torch.from_numpy(mx).to(dev)
     tgt = torch.from_numpy(np.full(BATCH, ERROR, np.float32) - maxq).to(dev)
+    tgt_pw = torch.from_numpy(
+        pointwise_targets(data[:BATCH], eb[:BATCH],
+                          cfg_pw.pointwise_max_error_ratio) -
+        maxq[:, None, None]).to(dev)
     dataq, _, dc, ci = codec._hostq_prelude(u_dev, mn_d, mx_d)
     an = bp.analyze(ci, codec.base.spec)
     # the residual layer against base@(plane 9, complete), as the encode
@@ -135,13 +243,17 @@ def main() -> int:
     base_rec = codec._base_recon(coef, mn_d, mx_d, dc)
     rmin, rmax, dcr, cir = codec._resid_transform(dataq - base_rec)
     an_r = bp.analyze(cir, codec.resid.spec)
-    layers = {
-        "base": (codec.base, an, _Eval(codec.base, H, W, ci, dataq, tgt,
-                                       "base", dc, mn_d, mx_d)),
-        "resid": (codec.resid, an_r, _Eval(codec.resid, H, W, cir, dataq,
-                                           tgt, "resid", dcr, rmin, rmax,
-                                           base_rec=base_rec)),
-    }
+
+    def make_layers(target):
+        return {
+            "base": (codec.base, an, _Eval(codec.base, H, W, ci, dataq,
+                                           target, "base", dc, mn_d, mx_d)),
+            "resid": (codec.resid, an_r, _Eval(
+                codec.resid, H, W, cir, dataq, target, "resid", dcr, rmin,
+                rmax, base_rec=base_rec)),
+        }
+
+    layers = make_layers(tgt)
     times = {}
 
     phase("K2 level0_counts vs plain torch (integer-equal)")
@@ -159,50 +271,63 @@ def main() -> int:
             cuda_ms(lambda: l0.level0_counts_ref(a.msb, a.smax[1], p, j), 3))
         print(f"{name} {tuple(a.msb.shape)} P={p} J={j}: equal")
 
-    phase("K1 fused_eval vs plain torch (decisions identical, maxd "
-          "rtol=1e-5 atol=1e-4)")
-    gen = torch.Generator().manual_seed(0)
     frames = torch.arange(BATCH, dtype=torch.int32, device=dev)
-    k1_err, n_cands = 0.0, 0
-    for name, (geom, _, ev) in layers.items():
-        a = dict(ev.args)
-        ci_, ref_ = a.pop("ci"), a.pop("ref")
-        p, j = geom.spec.nplanes, geom.spec.nchunks
-        cands = []
-        for b0 in range(p):  # every plane at full chunks, varied per frame
-            cands.append(("trunc", (frames + b0) % p, dict(js=j, jr=j)))
-        for k in range(2 * j):  # every fine (js, jr) pair of two planes
-            for b0 in (p // 3, p // 2):
-                js, jr = (k + 1, 0) if k < j else (j, k - j + 1)
-                cands.append(("trunc", (frames * 0 + b0), dict(js=js, jr=jr)))
-        for _ in range(12):  # random drop masks
-            dm = torch.randint(0, 1 << j, (BATCH,), generator=gen,
-                               dtype=torch.int32).to(dev)
-            b0 = int(torch.randint(0, p, (1,), generator=gen))
-            cands.append(("masked", frames * 0 + b0, dict(dropmask=dm)))
-        for mode, b, cand in cands:
-            mk, ck = fe.eval_stats(ci_, ref_, b, mode=mode, **a, **cand)
-            mr, cr = fe.eval_stats_ref(ci_, ref_, b, mode=mode, **a, **cand)
-            torch.testing.assert_close(mk, mr, rtol=1e-5, atol=1e-4)
-            if not torch.equal(mk <= 0, mr <= 0):
-                raise AssertionError(f"K1 {name}: maxd <= 0 decision differs")
-            for q in (0.0, 1e-6, 1e-3):
-                vk, vr = ck.float() * ev.inv_n, cr.float() * ev.inv_n
-                if not torch.equal(vk <= q, vr <= q):
-                    raise AssertionError(f"K1 {name}: viol <= {q} differs")
-            k1_err = max(k1_err, float((mk - mr).abs().max()))
-            n_cands += 1
-        for mode, cand in (("trunc", dict(js=j, jr=j)),
-                           ("masked", dict(dropmask=0b10110101))):
-            b = frames * 0 + p // 2
-            times[("K1", f"{name}/{mode}")] = (
-                cuda_ms(lambda: fe.eval_stats(ci_, ref_, b, mode=mode,
-                                              workspace=ev.workspace, **a,
-                                              **cand)),
-                cuda_ms(lambda: fe.eval_stats_ref(ci_, ref_, b, mode=mode,
-                                                  **a, **cand), 3))
-    print(f"{n_cands} candidates, all decisions identical; largest maxd "
-          f"difference {k1_err!r}")
+
+    def check_k1(layers, label):
+        """Kernel vs plain on the candidate spread of the searches: every
+        plane, the fine (js, jr) pairs of two planes, random drop masks.
+        Returns the largest maxd difference and the candidate count."""
+        gen = torch.Generator().manual_seed(0)
+        k1_err, n_cands = 0.0, 0
+        for name, (geom, _, ev) in layers.items():
+            a = dict(ev.args)
+            ci_, ref_ = a.pop("ci"), a.pop("ref")
+            p, j = geom.spec.nplanes, geom.spec.nchunks
+            cands = []
+            for b0 in range(p):  # every plane at full chunks, varied per frame
+                cands.append(("trunc", (frames + b0) % p, dict(js=j, jr=j)))
+            for k in range(2 * j):  # every fine (js, jr) pair of two planes
+                for b0 in (p // 3, p // 2):
+                    js, jr = (k + 1, 0) if k < j else (j, k - j + 1)
+                    cands.append(("trunc", (frames * 0 + b0),
+                                  dict(js=js, jr=jr)))
+            for _ in range(12):  # random drop masks
+                dm = torch.randint(0, 1 << j, (BATCH,), generator=gen,
+                                   dtype=torch.int32).to(dev)
+                b0 = int(torch.randint(0, p, (1,), generator=gen))
+                cands.append(("masked", frames * 0 + b0, dict(dropmask=dm)))
+            for mode, b, cand in cands:
+                mk, ck = fe.eval_stats(ci_, ref_, b, mode=mode, **a, **cand)
+                mr, cr = fe.eval_stats_ref(ci_, ref_, b, mode=mode, **a,
+                                           **cand)
+                torch.testing.assert_close(mk, mr, rtol=1e-5, atol=1e-4)
+                if not torch.equal(mk <= 0, mr <= 0):
+                    raise AssertionError(f"{label} {name}: maxd <= 0 "
+                                         "decision differs")
+                for q in (0.0, 1e-6, 1e-3):
+                    vk, vr = ck.float() * ev.inv_n, cr.float() * ev.inv_n
+                    if not torch.equal(vk <= q, vr <= q):
+                        raise AssertionError(f"{label} {name}: viol <= {q} "
+                                             "differs")
+                k1_err = max(k1_err, float((mk - mr).abs().max()))
+                n_cands += 1
+            for mode, cand in (("trunc", dict(js=j, jr=j)),
+                               ("masked", dict(dropmask=0b10110101))):
+                b = frames * 0 + p // 2
+                times[(label, f"{name}/{mode}")] = (
+                    cuda_ms(lambda: fe.eval_stats(ci_, ref_, b, mode=mode,
+                                                  workspace=ev.workspace,
+                                                  **a, **cand)),
+                    cuda_ms(lambda: fe.eval_stats_ref(ci_, ref_, b,
+                                                      mode=mode, **a,
+                                                      **cand), 3))
+        print(f"{n_cands} candidates, all decisions identical; largest maxd "
+              f"difference {k1_err!r}")
+        return k1_err, n_cands
+
+    phase("K1 fused_eval vs plain torch, scalar targets (decisions "
+          "identical, maxd rtol=1e-5 atol=1e-4)")
+    k1_err, _ = check_k1(layers, "K1")
     # per-pass device times of one base/trunc evaluation (profiler), to
     # read each pass's achieved bandwidth against the 3.35 TB/s of HBM:
     # a pass served from the 50 MB L2 can exceed it
@@ -212,11 +337,42 @@ def main() -> int:
     k1_passes, _ = kernel_times(lambda: fe.eval_stats(
         ci_, ref_, frames * 0 + 11, mode="trunc", js=8, jr=8, workspace=ws,
         **a))
-    del layers, ev, a, ci_, ref_, ws
+    del layers, a, ci_, ref_, ws
+
+    phase("K1p fused_eval vs plain torch, per-point target field "
+          "(decisions identical, maxd rtol=1e-5 atol=1e-4)")
+    layers = make_layers(tgt_pw)
+    k1p_err, _ = check_k1(layers, "K1p")
+    del layers
+
+    phase("idwt vs plain torch (expect bit equality; fail above 1 ulp)")
+    idwt_shapes = [((BATCH, codec.base.hp, codec.base.wp), codec.base.levels),
+                   ((BATCH, codec.resid.hp, codec.resid.wp),
+                    codec.resid.levels),
+                   ((1, 768, 1472), 1), ((1, 768, 1472), 5)]
+    idwt_err = 0.0
+    rng = np.random.default_rng(2)
+    for shape, lv in idwt_shapes:
+        x = torch.from_numpy(rng.normal(0, 100, shape).astype(
+            np.float32)).to(dev)
+        out = dwt.idwt2d_multi(x, lv)
+        ref = dwt.idwt2d_multi_ref(x, lv)
+        ndiff = int((out != ref).sum())
+        maxdiff = float((out - ref).abs().max())
+        ulps = int(ulp_distance(out, ref).max())
+        idwt_err = max(idwt_err, maxdiff)
+        print(f"{shape} L={lv}: {ndiff} of {out.numel()} elements differ, "
+              f"largest difference {maxdiff!r} ({ulps} ulp)")
+        if ulps > 1:
+            raise AssertionError(f"idwt {shape} L={lv}: {ulps} ulp apart")
+        times[("idwt", f"{shape} L={lv}")] = (
+            cuda_ms(lambda: dwt.idwt2d_multi(x, lv)),
+            cuda_ms(lambda: dwt.idwt2d_multi_ref(x, lv), 3))
+        del x, out, ref
 
     phase("main path: compress + decompress on cuda "
           f"({N_FRAMES} frames {H}x{W}, MAX_ERROR {ERROR})")
-    l0.KERNEL.launches = fe.KERNEL.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     blob = ebcc_tpu_torch.compress(data, cfg, device="cuda")
@@ -224,39 +380,52 @@ def main() -> int:
     t0 = time.perf_counter()
     rec = ebcc_tpu_torch.decompress(blob, cfg, device="cuda")
     t_dec_cold = time.perf_counter() - t0
-    launches = {"level0_counts": l0.KERNEL.launches,
-                "fused_eval": fe.KERNEL.launches}
-    print("launches in the main path:", launches)
-    if min(launches.values()) == 0:
+    launches_max = read_counts()
+    print("launches in the MAX_ERROR path:", launches_max)
+    if min(launches_max.values()) == 0:
         raise AssertionError("a kernel of the main path never launched")
     if rec.shape != data.shape or not np.isfinite(rec).all():
         raise AssertionError(f"bad reconstruction {rec.shape}")
+    rec_native = cpu_decoder.decompress(blob)
     err = float(np.abs(rec - data).max())
-    err_native = float(np.abs(cpu_decoder.decompress(blob) - data).max())
+    err_native = float(np.abs(rec_native - data).max())
     print(f"max error: port decoder {err!r}, native decoder {err_native!r} "
           f"(bound {ERROR})")
     if err > ERROR or err_native > ERROR:
         raise AssertionError("error bound violated")
+    ndiff = int(np.sum(rec.view(np.uint32) != rec_native.view(np.uint32)))
+    print(f"cuda decode vs native decoder: {ndiff} points differ")
+    if ndiff:
+        raise AssertionError("the cuda decode differs from the native one")
     t0 = time.perf_counter()
     nblob = cpu_encoder.compress(data, cfg)
     t_native = time.perf_counter() - t0
-    ours, theirs = container.unpack_blob(blob), container.unpack_blob(nblob)
-    same = [a_ == b_ for a_, b_ in zip(ours, theirs)]
-    print(f"byte-identical frames vs the native encoder: {sum(same)}/"
-          f"{len(same)}")
-    for i in (i for i, s in enumerate(same) if not s):
-        lo = i // BATCH * BATCH
-        hq = _scale_u16_host(data[lo:lo + BATCH])
-        res = codec.encode_error_bounded_hostq(
-            _upload_u16(hq[0], dev), torch.from_numpy(hq[1]).to(dev),
-            torch.from_numpy(hq[2]).to(dev),
-            torch.from_numpy(np.float32(ERROR) - hq[3]).to(dev), 1e-6)
-        sel = {f: int(getattr(res, f)[i - lo]) for f in
-               ("bs_q", "ks_q", "km_q", "bs_pure", "ks_pure", "km_pure",
-                "bs_r", "ks_r", "km_r")}
-        hdr = [container.unpack_frame(x)[0] for x in (ours[i], theirs[i])]
-        print(f"frame {i} differs: port selections {sel}; headers "
-              f"port {hdr[0]} native {hdr[1]}")
+
+    def compare_to_native(ours_blob, native_blob, codec_, targets):
+        """Byte-identical frame count; the selections of any differing
+        frame are printed."""
+        ours, theirs = (container.unpack_blob(b) for b in (ours_blob,
+                                                            native_blob))
+        same = [a_ == b_ for a_, b_ in zip(ours, theirs)]
+        print(f"byte-identical frames vs the native encoder: {sum(same)}/"
+              f"{len(same)}")
+        for i in (i for i, s in enumerate(same) if not s):
+            lo = i // BATCH * BATCH
+            hq = _scale_u16_host(data[lo:lo + BATCH])
+            res = codec_.encode_error_bounded_hostq(
+                _upload_u16(hq[0], dev), torch.from_numpy(hq[1]).to(dev),
+                torch.from_numpy(hq[2]).to(dev),
+                torch.from_numpy(targets(lo, hq[3])).to(dev), 1e-6)
+            sel = {f: int(getattr(res, f)[i - lo]) for f in
+                   ("bs_q", "ks_q", "km_q", "bs_pure", "ks_pure", "km_pure",
+                    "bs_r", "ks_r", "km_r")}
+            hdr = [container.unpack_frame(x)[0] for x in (ours[i],
+                                                           theirs[i])]
+            print(f"frame {i} differs: port selections {sel}; headers "
+                  f"port {hdr[0]} native {hdr[1]}")
+        return sum(same), len(same)
+
+    compare_to_native(blob, nblob, codec, lambda lo, q: np.float32(ERROR) - q)
     cr = data.nbytes / len(blob)
 
     phase("residual layer on cuda (pure-base fallback off, base quantile "
@@ -285,6 +454,90 @@ def main() -> int:
     if rerr > ERROR or rerr_native > ERROR:
         raise AssertionError("error bound violated (residual layer)")
 
+    phase("pointwise path: compress + decompress on cuda "
+          f"({N_FRAMES} frames {H}x{W}, POINTWISE_MAX_ERROR, bounds from "
+          "the upsampled spread)")
+    codec_pw = FrameCodec(H, W, cfg_pw, dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob_pw = ebcc_tpu_torch.compress(data, cfg_pw, error_bound=eb,
+                                      device="cuda")
+    t_enc_pw_cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec_pw = ebcc_tpu_torch.decompress(blob_pw, cfg_pw, device="cuda")
+    t_dec_pw_cold = time.perf_counter() - t0
+    launches_pw = read_counts()
+    print("launches in the pointwise path:", launches_pw)
+    if min(launches_pw.values()) == 0:
+        raise AssertionError("a kernel of the pointwise path never launched")
+    if rec_pw.shape != data.shape or not np.isfinite(rec_pw).all():
+        raise AssertionError(f"bad reconstruction {rec_pw.shape}")
+    t0 = time.perf_counter()
+    nblob_pw = cpu_encoder.compress(data, cfg_pw, error_bound=eb)
+    t_native_pw = time.perf_counter() - t0
+    pw_tgt = pointwise_targets(data, eb, cfg_pw.pointwise_max_error_ratio)
+    compare_to_native(
+        blob_pw, nblob_pw, codec_pw,
+        lambda lo, q: pw_tgt[lo:lo + BATCH] - q[:, None, None])
+    rec_pw_native = cpu_decoder.decompress(blob_pw)
+    for label, r in (("port cuda decoder", rec_pw),
+                     ("native decoder", rec_pw_native)):
+        excess = np.abs(r - data) - eb
+        nviol = int(np.sum(excess > 0))
+        print(f"{label}: {nviol} points past the bound; largest "
+              f"|rec - x| - eb {float(excess.max())!r}")
+        if nviol:
+            raise AssertionError(f"pointwise bound violated ({label})")
+    ndiff = int(np.sum(rec_pw.view(np.uint32) !=
+                       rec_pw_native.view(np.uint32)))
+    print(f"cuda decode vs native decoder: {ndiff} points differ")
+    if ndiff:
+        raise AssertionError("the cuda decode differs from the native one")
+    cr_pw = data.nbytes / len(blob_pw)
+    hdrs = [container.unpack_frame(f)[0]
+            for f in container.unpack_blob(blob_pw)]
+    if not all(h.flags & container.FLAG_POINTWISE for h in hdrs):
+        raise AssertionError("a pointwise frame lacks FLAG_POINTWISE")
+    print(f"CR {cr_pw:.2f}; frames keeping a residual: "
+          f"{sum(bool(h.flags & container.FLAG_RESID) for h in hdrs)}")
+
+    phase("DirectCompressor: compress_batch of 2 slices x 16 frames, then "
+          "decompress each blob (native decoder pinned; then "
+          "decode_backend='device')")
+    slices = data.reshape(2, BATCH, H, W)
+    eb_slices = eb.reshape(2, BATCH, H, W)
+    dc_ = DirectCompressor(base_cr=100)
+    t0 = time.perf_counter()
+    pairs = dc_.compress_batch(slices, eb_slices)
+    t_direct = time.perf_counter() - t0
+    dev_cfg = dataclasses.replace(dc_.config, decode_backend="device")
+    dc_dev = DirectCompressor(config=dev_cfg)
+    pairs_dev = dc_dev.compress_batch(slices, eb_slices)
+    for label, dcx, prs, code in (("native decoder", dc_, pairs, 1),
+                                  ("cuda decoder", dc_dev, pairs_dev, 2)):
+        nbytes = sum(len(b) for b, _ in prs)
+        for i, (b, r) in enumerate(prs):
+            out = dcx.decompress(b)
+            nviol = int(np.sum(np.abs(out - slices[i]) > eb_slices[i]))
+            if not np.array_equal(out, r):
+                raise AssertionError("DirectCompressor decode differs from "
+                                     "its compress-time reconstruction")
+            if struct.unpack_from("<4sB", b, 0)[1] != code:
+                raise AssertionError(f"backend code is not {code}")
+            if nviol:
+                raise AssertionError(f"DirectCompressor ({label}): {nviol} "
+                                     "points past the bound")
+            print(f"{label}, slice {i}: {direct_patch_count(b)} points "
+                  f"patched, 0 past the bound, backend code {code}")
+        print(f"{label}: CR including the patch "
+              f"{slices.nbytes / nbytes:.2f}")
+    for (_, r), (_, rd) in zip(pairs, pairs_dev):
+        if not np.array_equal(r.view(np.uint32), rd.view(np.uint32)):
+            raise AssertionError("DirectCompressor reconstructions of the "
+                                 "two decode backends differ")
+    print("the two backends' reconstructions are bit-identical")
+
     phase(f"timings {tag}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -295,22 +548,54 @@ def main() -> int:
     t_dec = time.perf_counter() - t0
     if blob2 != blob:
         raise AssertionError("a second encode gave other bytes")
+    t0 = time.perf_counter()
+    blob_pw2 = ebcc_tpu_torch.compress(data, cfg_pw, error_bound=eb,
+                                       device="cuda")
+    t_enc_pw = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ebcc_tpu_torch.decompress(blob_pw2, cfg_pw, device="cuda")
+    t_dec_pw = time.perf_counter() - t0
+    if blob_pw2 != blob_pw:
+        raise AssertionError("a second pointwise encode gave other bytes")
     pts = N_FRAMES * H * W
-    print(f"encode wall {t_enc:.3f} s ({pts / t_enc:.4g} pts/s), first run "
-          f"{t_enc_cold:.3f} s; decode wall {t_dec:.3f} s "
+    print(f"MAX_ERROR: encode wall {t_enc:.3f} s ({pts / t_enc:.4g} pts/s), "
+          f"first run {t_enc_cold:.3f} s; decode wall {t_dec:.3f} s "
           f"({pts / t_dec:.4g} pts/s), first run {t_dec_cold:.3f} s; "
           f"CR {cr:.2f}; native CPU encoder {t_native:.3f} s {tag}")
+    print(f"POINTWISE: encode wall {t_enc_pw:.3f} s "
+          f"({pts / t_enc_pw:.4g} pts/s), first run {t_enc_pw_cold:.3f} s; "
+          f"decode wall {t_dec_pw:.3f} s ({pts / t_dec_pw:.4g} pts/s), "
+          f"first run {t_dec_pw_cold:.3f} s; CR {cr_pw:.2f}; native CPU "
+          f"encoder {t_native_pw:.3f} s {tag}")
+    print(f"DirectCompressor compress_batch (2 x {BATCH} frames, encode + "
+          f"native decode + patch) wall {t_direct:.3f} s {tag}")
     dev_ms = min(cuda_ms(lambda: codec.encode_error_bounded_hostq(
         u_dev, mn_d, mx_d, tgt, 1e-6), reps=1) for _ in range(3))
-    print(f"device-only encode, warm batch of {BATCH} (u16 resident): "
-          f"{dev_ms:.2f} ms, {BATCH * H * W / dev_ms * 1e3:.4g} pts/s {tag}")
+    print(f"device-only MAX_ERROR encode, warm batch of {BATCH} (u16 "
+          f"resident): {dev_ms:.2f} ms, {BATCH * H * W / dev_ms * 1e3:.4g} "
+          f"pts/s {tag}")
+    dev_pw_ms = min(cuda_ms(lambda: codec_pw.encode_error_bounded_hostq(
+        u_dev, mn_d, mx_d, tgt_pw, 1e-6), reps=1) for _ in range(3))
+    print(f"device-only POINTWISE encode, warm batch of {BATCH} (u16 and "
+          f"targets resident): {dev_pw_ms:.2f} ms, "
+          f"{BATCH * H * W / dev_pw_ms * 1e3:.4g} pts/s {tag}")
+    for label, b in (("MAX_ERROR", blob), ("POINTWISE", blob_pw)):
+        metas = [container.unpack_frame(f)
+                 for f in container.unpack_blob(b)][:BATCH]
+        recon, args = _device_batch(codec, metas, list(range(BATCH)))
+        rec_ms = min(cuda_ms(lambda: recon(*args), reps=3) for _ in range(3))
+        print(f"device-only {recon.__name__} ({label} blob), warm batch of "
+              f"{BATCH}: {rec_ms:.3f} ms {tag}")
+        if label == "MAX_ERROR":
+            recon_ms = rec_ms
     for (kname, var), (ms, plain) in times.items():
         print(f"{kname} {var}: kernel {ms:.3f} ms, plain torch {plain:.3f} "
               f"ms {tag}")
     hp, wp, lv = codec.base.hp, codec.base.wp, codec.base.levels
     area = BATCH * sum((hp >> i) * (wp >> i) for i in range(lv))
-    bytes_per_pass = {"compose": 8 * BATCH * hp * wp, "lift_cols": 8 * area,
-                      "lift_rows": 8 * area, "tail_reduce": 8 * BATCH * H * W}
+    bytes_per_pass = {"compose": 8 * BATCH * hp * wp,
+                      "eval_lift_cols": 8 * area, "eval_lift_rows": 8 * area,
+                      "tail_reduce": 8 * BATCH * H * W}
     for name, nbytes in bytes_per_pass.items():
         us, n = k1_passes.get(name, (0.0, 0))
         gbs = f"{nbytes / us * 1e-3:.0f} GB/s" if us else "not measured"
@@ -319,32 +604,63 @@ def main() -> int:
     other = sum(us for k, (us, _) in k1_passes.items()
                 if k not in bytes_per_pass)
     print(f"K1 base/trunc wrapper's torch ops: {other / 1e3:.4f} ms {tag}")
-    enc_kernels, enc_wall_us = kernel_times(
-        lambda: codec.encode_error_bounded_hostq(u_dev, mn_d, mx_d, tgt, 1e-6))
-    busy = sum(us for us, _ in enc_kernels.values())
-    ours_k = ("compose", "lift_cols", "lift_rows", "tail_reduce",
-              "level0_hist", "level0_finalize")
-    in_k = sum(us for k, (us, _) in enc_kernels.items() if k in ours_k)
-    print(f"device-only encode under the profiler: wall "
-          f"{enc_wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
-          f"({100 * busy / enc_wall_us:.1f}%), of which the port's kernels "
-          f"{in_k / 1e3:.2f} ms {tag}")
-    for name, (us, n) in sorted(enc_kernels.items(),
-                                key=lambda kv: -kv[1][0])[:12]:
-        print(f"  {us / 1e3:8.3f} ms  {n:5d}x  {name}")
+    print_profile("device-only MAX_ERROR encode", *kernel_times(
+        lambda: codec.encode_error_bounded_hostq(u_dev, mn_d, mx_d, tgt,
+                                                 1e-6)), tag)
+    print_profile("device-only POINTWISE encode", *kernel_times(
+        lambda: codec_pw.encode_error_bounded_hostq(u_dev, mn_d, mx_d,
+                                                    tgt_pw, 1e-6)), tag)
+    print_profile(f"device-only {recon.__name__} (POINTWISE blob)",
+                  *kernel_times(lambda: recon(*args)), tag)
+
+    # least times from this run's shapes: each input read once, each output
+    # written once, against the operations on them
+    n_b = BATCH * hp * wp
+    j, p = codec.base.spec.nchunks, codec.base.spec.nplanes
+    k2_bound = bound(4 * (n_b + n_b // 4) + 4 * BATCH * j * p * 3,
+                     2 * (n_b + n_b // 4))
+    # K1 base/trunc: ci over the padded frames, ref (and the per-point
+    # tgt_field) over the valid H x W points only (the tail reads no
+    # more), [B, 2] out; compose ~10 operations a coefficient, the tail ~8
+    # a valid point
+    n_v = BATCH * H * W
+    k1_ops = 10 * n_b + lifting_ops(BATCH, hp, wp, lv) + 8 * n_v
+    k1s_bound = bound(4 * n_b + 4 * n_v + 8 * BATCH, k1_ops)
+    k1_bound = bound(4 * n_b + 2 * 4 * n_v + 8 * BATCH, k1_ops)
+    idwt_bound = bound(8 * n_b, lifting_ops(BATCH, hp, wp, lv))
+    k1p_key = ("K1p", "base/trunc")
+    idwt_key = ("idwt", f"{(BATCH, hp, wp)} L={lv}")
+    for name, (ms, by), kms in (("level0_counts", k2_bound,
+                                 times[("K2", "base")][0]),
+                                ("fused_eval scalar base/trunc", k1s_bound,
+                                 times[("K1", "base/trunc")][0]),
+                                ("fused_eval tgt_field base/trunc", k1_bound,
+                                 times[k1p_key][0]),
+                                ("idwt", idwt_bound, times[idwt_key][0])):
+        print(f"{name}: bound {ms:.4f} ms ({by}), kernel {kms:.4f} ms, "
+              f"{100 * ms / kms:.1f}% of the bound {tag}")
+    print(f"device-only recon_packed (MAX_ERROR blob) {recon_ms:.3f} ms")
+
+    def entry(name, source, replaces, err, key, bnd):
+        return {"name": name, "route": "cuda",
+                "source": f"ebcc_tpu_torch/csrc/{source}",
+                "replaces": replaces,
+                "launches": launches_pw[name],
+                "launches_max_error_path": launches_max[name],
+                "max_abs_err": err, "ms": times[key][0],
+                "plain_ms": times[key][1], "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": None}
 
     record = {"kernels": [
-        {"name": "level0_counts", "route": "cuda",
-         "source": "ebcc_tpu_torch/csrc/level0_counts.cu",
-         "replaces": "ebcc_tpu/ops/pallas_kernels.py:78",
-         "launches": launches["level0_counts"], "max_abs_err": k2_err,
-         "ms": times[("K2", "base")][0], "plain_ms": times[("K2", "base")][1]},
-        {"name": "fused_eval", "route": "cuda",
-         "source": "ebcc_tpu_torch/csrc/fused_eval.cu",
-         "replaces": "ebcc_tpu/ops/pallas_eval.py:219",
-         "launches": launches["fused_eval"], "max_abs_err": k1_err,
-         "ms": times[("K1", "base/trunc")][0],
-         "plain_ms": times[("K1", "base/trunc")][1]},
+        entry("level0_counts", "level0_counts.cu",
+              "ebcc_tpu/ops/pallas_kernels.py:78", k2_err, ("K2", "base"),
+              k2_bound),
+        entry("fused_eval", "fused_eval.cu",
+              "ebcc_tpu/ops/pallas_eval.py:219", max(k1_err, k1p_err),
+              k1p_key, k1_bound),
+        dict(entry("idwt", "idwt.cu", "scripts/pallas_idwt_probe2.py:106",
+                   idwt_err, idwt_key, idwt_bound),
+             also_replaces="scripts/pallas_idwt_probe.py:122"),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

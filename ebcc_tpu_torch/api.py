@@ -1,8 +1,9 @@
 """Array-in / bytes-out compression API on a torch device.
 
 Counterpart of the main path of ``ebcc_tpu.api``: error-bounded
-(MAX_ERROR / RELATIVE_ERROR) compression of [..., H, W] float32 frames in
-batches, and decompression of the resulting container blobs.  Containers
+(MAX_ERROR / RELATIVE_ERROR, and POINTWISE_MAX_ERROR against a per-point
+bound array) compression of [..., H, W] float32 frames in batches, and
+decompression of the resulting container blobs.  Containers
 are format v4 (docs/FORMAT.md), byte-identical to the JAX package's and
 the native CPU encoder's on the same input and config.
 
@@ -11,7 +12,8 @@ runs), the device runs transform, analysis and every truncation search
 (:class:`.codec.pipeline.FrameCodec`), and the host packs the chosen
 selections with the native bitplane coder, applies zstd and assembles the
 frames.  Decode runs the native structural decoder on the host and the
-reconstruction on the device.
+reconstruction on the device, or the whole native CPU decoder when
+``config.decode_backend == "cpu"``.
 
 The device is explicit: ``device="cuda"`` (the default) needs a CUDA
 device and raises without one; ``device="cpu"`` runs the same code with
@@ -30,6 +32,7 @@ from .codec.config import (EBCCConfig, ResidualMode, base_error_quantile,
                            pure_fallback_disabled)
 from .codec.pipeline import COEF_FIELDS, FrameCodec
 from .ops import bitplane as bp
+from .runtime import cpu_decoder
 from .runtime import native as _native
 from .utils import logging as elog
 
@@ -41,7 +44,8 @@ PURE_DECIDE_NUM = 2
 PURE_DECIDE_DEN = 5
 TIER0_MAX_EXTRA_BITS = 128
 
-_ERROR_MODES = (ResidualMode.MAX_ERROR, ResidualMode.RELATIVE_ERROR)
+_ERROR_MODES = (ResidualMode.MAX_ERROR, ResidualMode.RELATIVE_ERROR,
+                ResidualMode.POINTWISE_MAX_ERROR)
 
 
 def _device(device) -> torch.device:
@@ -53,6 +57,37 @@ def _device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def pointwise_targets(frames: np.ndarray, eb: np.ndarray,
+                      ratio: float) -> np.ndarray:
+    """Per-point search targets for POINTWISE_MAX_ERROR mode.
+
+    The reference narrows the target to ``eb * ratio * (1 - eps)``
+    (j2k_codec.h:842-845) so decode-side arithmetic drift cannot push a
+    point past the user bound.  Two corrections to that scheme here:
+
+    * ``1 - 1e-8`` rounds to exactly ``1.0f`` — at float32 the reference's
+      margin is a no-op.
+    * The actual drift (jitted vs native CPU decoder; last-ulp differences
+      in the f32 lifting arithmetic) scales with the frame's u16
+      quantisation step ``(mx - mn) / 65535`` — NOT with ``eb`` — so a
+      purely relative margin cannot absorb it for small bounds.
+
+    The margin therefore subtracts one u16 quantum per frame (measured
+    cross-backend drift: 0.074 quanta worst case over the ERA5 fixtures —
+    13x headroom), floored at half the scaled bound so degenerate bounds
+    below ~2 quanta still encode (there the cross-backend guarantee
+    needs the exact-value patch, models/direct.py).  Both encoder
+    backends compute targets through this one function, keeping their
+    containers byte-identical (tests/test_cpu_encoder.py).
+    """
+    rng = (frames.max(axis=(-2, -1)) -
+           frames.min(axis=(-2, -1))).astype(np.float32)
+    slack = rng * np.float32(1.0 / 65535.0)
+    t = eb.astype(np.float32) * np.float32(ratio)
+    return np.maximum(t - slack[:, None, None],
+                      t * np.float32(0.5)).astype(np.float32)
 
 
 def _scale_u16_host(frames: np.ndarray):
@@ -100,19 +135,21 @@ def _clamp_levels(config: EBCCConfig, h: int, w: int) -> EBCCConfig:
     return config
 
 
-def compress(data, config: EBCCConfig | None = None, *, device="cuda",
-             qbase=None) -> bytes:
+def compress(data, config: EBCCConfig | None = None, *, error_bound=None,
+             device="cuda", qbase=None) -> bytes:
     """Compress ``data`` ([..., H, W] float32) into a container blob.
 
-    ``device``: where the transform and the searches run ("cuda" or
-    "cpu").  ``qbase``: base-layer feasibility quantile override (defaults
-    to the EBCC_INIT_BASE_ERROR_QUANTILE env var).
+    ``error_bound``: the per-point bound array of POINTWISE_MAX_ERROR (one
+    value per point of ``data``).  ``device``: where the transform and the
+    searches run ("cuda" or "cpu").  ``qbase``: base-layer feasibility
+    quantile override (defaults to the EBCC_INIT_BASE_ERROR_QUANTILE env
+    var).
     """
     config = config or EBCCConfig()
     dev = _device(device)
     if config.mode not in _ERROR_MODES:
-        raise ValueError(f"ebcc_tpu_torch encodes MAX_ERROR and "
-                         f"RELATIVE_ERROR only, not {config.mode!r}")
+        raise ValueError(f"ebcc_tpu_torch encodes the error-bounded modes "
+                         f"only, not {config.mode!r}")
     if config.use_chunk_mask and config.mask_search != "greedy":
         raise ValueError("ebcc_tpu_torch implements mask_search='greedy' "
                          "only")
@@ -130,17 +167,26 @@ def compress(data, config: EBCCConfig | None = None, *, device="cuda",
     config = _clamp_levels(config, h, w)
     if qbase is None:
         qbase = base_error_quantile()
+    pointwise = config.mode == ResidualMode.POINTWISE_MAX_ERROR
+    if pointwise:
+        if error_bound is None:
+            raise ValueError("POINTWISE_MAX_ERROR requires error_bound")
+        eb = np.asarray(error_bound, np.float32).reshape(-1, h, w)
+        # per-point target with the drift-absorbing safety margin
+        # (reference semantics: j2k_codec.h:842-845)
+        eb = pointwise_targets(frames, eb, config.pointwise_max_error_ratio)
     codec = FrameCodec(h, w, config, dev)
     n = frames.shape[0]
     bsz = min(config.max_batch, n)
     out_frames = []
     for lo, hi in _batches(n, bsz):
         u, mnb, mxb, maxq = _scale_u16_host(frames[lo:hi])
-        if config.mode == ResidualMode.RELATIVE_ERROR:
-            target = (config.error * (mxb - mnb)).astype(np.float32)
+        if pointwise:
+            target = eb[lo:hi] - maxq[:, None, None]
+        elif config.mode == ResidualMode.RELATIVE_ERROR:
+            target = (config.error * (mxb - mnb)).astype(np.float32) - maxq
         else:
-            target = np.full(hi - lo, config.error, np.float32)
-        target = target - maxq
+            target = np.full(hi - lo, config.error, np.float32) - maxq
         res = codec.encode_error_bounded_hostq(
             _upload_u16(u, dev), torch.from_numpy(mnb).to(dev),
             torch.from_numpy(mxb).to(dev), torch.from_numpy(target).to(dev),
@@ -310,6 +356,7 @@ def _assemble_frame(res, i, h, w, config, streams, zblobs) -> bytes:
         return container.pack_frame(
             mode, h, w, mn, mx, base_stream=stream, base_nbits=bits,
             base_z=base_z, geom=_geom(config), resid=rpart, base_mask=bmask,
+            pointwise=config.mode == ResidualMode.POINTWISE_MAX_ERROR,
             dc_b=float(res["dc_b"][i]),
             max_step_b=int(res["max_step_b"][i]))
 
@@ -405,9 +452,17 @@ def _layer_inputs(metas, idxs):
 
 def decompress(blob: bytes, config: EBCCConfig | None = None, *,
                device="cuda") -> np.ndarray:
-    """Decompress a container blob back to [N, H, W] float32; the
-    reconstruction runs on ``device`` ("cuda" or "cpu")."""
+    """Decompress a container blob back to [N, H, W] float32.
+
+    ``config.decode_backend``: "cpu" decodes with the native CPU decoder
+    (``device`` unused); "device" and "auto" reconstruct on ``device``
+    ("cuda" or "cpu")."""
     config = config or EBCCConfig()
+    if config.decode_backend == "cpu":
+        _check_uniform_geometry(
+            [container.unpack_frame(f)[0]
+             for f in container.unpack_blob(blob)])
+        return cpu_decoder.decompress(blob)
     dev = _device(device)
     metas = [container.unpack_frame(f) for f in container.unpack_blob(blob)]
     out = [None] * len(metas)
@@ -427,35 +482,43 @@ def decompress(blob: bytes, config: EBCCConfig | None = None, *,
         nchunks=g0.nchunks, base_nplanes=g0.base_nplanes,
         residual_nplanes=g0.resid_nplanes)
     codec = FrameCodec(g0.h, g0.w, config, dev)
+    for lo, hi in _batches(len(todo), min(config.max_batch, len(todo))):
+        idxs = todo[lo:hi]
+        recon, args = _device_batch(codec, metas, idxs)
+        rec = recon(*args).cpu().numpy()
+        for k, idx in enumerate(idxs):
+            out[idx] = rec[k]
+    return np.stack(out)
+
+
+def _device_batch(codec, metas, idxs):
+    """Native structural decode of the frames ``idxs`` of ``metas`` and the
+    upload of its state: ``(recon, args)`` such that ``recon(*args)`` is
+    the batch's reconstruction on ``codec.device``."""
+    dev = codec.device
     bspec, rspec = codec.base.spec, codec.resid.spec
 
     def t(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
 
-    for lo, hi in _batches(len(todo), min(config.max_batch, len(todo))):
-        idxs = todo[lo:hi]
-        bs, rs, f, i, hasr = _layer_inputs(metas, idxs)
-        geo_b = (bspec.height, bspec.width, bspec.group_levels,
-                 bspec.nplanes, bspec.nchunks)
-        geo_r = (rspec.height, rspec.width, rspec.group_levels,
-                 rspec.nplanes, rspec.nchunks)
-        v16_b, bend_b, ok_b = _native.coder_decode_batch_u16(
-            bs, i["bb"], i["msb"], *geo_b, i["mask_b"], i["keep_b"])
-        v16_r, bend_r, ok_r = _native.coder_decode_batch_u16(
-            rs, i["rb"], i["msr"], *geo_r, i["mask_r"], i["keep_r"])
-        common = (t(f["mn"]), t(f["mx"]), t(f["dc_b"]), t(hasr))
-        resid = (t(f["rmin"]), t(f["rmax"]), t(f["dc_r"]))
-        if ok_b.all() and ok_r.all():
-            rec = codec.recon_packed(
-                _upload_u16(v16_b, dev), t(bend_b), *common,
-                _upload_u16(v16_r, dev), t(bend_r), *resid)
-        else:  # more than 14 decoded planes somewhere: f32 coefficients
-            coef_b = _native.coder_decode_batch(
-                bs, i["bb"], i["msb"], *geo_b, i["mask_b"], i["keep_b"])
-            coef_r = _native.coder_decode_batch(
-                rs, i["rb"], i["msr"], *geo_r, i["mask_r"], i["keep_r"])
-            rec = codec.recon(t(coef_b), *common, t(coef_r), *resid)
-        rec = rec.cpu().numpy()
-        for k, idx in enumerate(idxs):
-            out[idx] = rec[k]
-    return np.stack(out)
+    bs, rs, f, i, hasr = _layer_inputs(metas, idxs)
+    geo_b = (bspec.height, bspec.width, bspec.group_levels, bspec.nplanes,
+             bspec.nchunks)
+    geo_r = (rspec.height, rspec.width, rspec.group_levels, rspec.nplanes,
+             rspec.nchunks)
+    v16_b, bend_b, ok_b = _native.coder_decode_batch_u16(
+        bs, i["bb"], i["msb"], *geo_b, i["mask_b"], i["keep_b"])
+    v16_r, bend_r, ok_r = _native.coder_decode_batch_u16(
+        rs, i["rb"], i["msr"], *geo_r, i["mask_r"], i["keep_r"])
+    common = (t(f["mn"]), t(f["mx"]), t(f["dc_b"]), t(hasr))
+    resid = (t(f["rmin"]), t(f["rmax"]), t(f["dc_r"]))
+    if ok_b.all() and ok_r.all():
+        return codec.recon_packed, (
+            _upload_u16(v16_b, dev), t(bend_b), *common,
+            _upload_u16(v16_r, dev), t(bend_r), *resid)
+    # more than 14 decoded planes somewhere: f32 coefficients
+    coef_b = _native.coder_decode_batch(
+        bs, i["bb"], i["msb"], *geo_b, i["mask_b"], i["keep_b"])
+    coef_r = _native.coder_decode_batch(
+        rs, i["rb"], i["msr"], *geo_r, i["mask_r"], i["keep_r"])
+    return codec.recon, (t(coef_b), *common, t(coef_r), *resid)

@@ -37,10 +37,13 @@ class EBCCConfig:
     """User-facing codec configuration (same fields as the JAX package).
 
     This package encodes the error-bounded modes (MAX_ERROR,
-    RELATIVE_ERROR) with the greedy chunk-mask rule; the other modes and
-    ``mask_search="union"`` are rejected by :func:`ebcc_tpu_torch.compress`.
-    ``use_pallas_counts``, ``use_pallas_eval``, ``prefetch_batches``,
-    ``decode_backend``, ``encode_backend`` and the ``*_cap_bits_per_px``
+    RELATIVE_ERROR, POINTWISE_MAX_ERROR) with the greedy chunk-mask rule;
+    the other modes and ``mask_search="union"`` are rejected by
+    :func:`ebcc_tpu_torch.compress`.  ``decode_backend`` chooses the
+    decoder (:func:`ebcc_tpu_torch.decompress`: "cpu" is the native CPU
+    decoder, "device" and "auto" the reconstruction on the caller's
+    device).  ``use_pallas_counts``, ``use_pallas_eval``,
+    ``prefetch_batches``, ``encode_backend`` and the ``*_cap_bits_per_px``
     fields steer parts of the JAX package this package does not have: they
     are accepted (so configurations cross between the packages) and not
     read.  The CUDA kernels run whenever the tensors are on a CUDA device.

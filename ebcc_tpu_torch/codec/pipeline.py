@@ -107,10 +107,12 @@ class _Eval:
                  target, kind, dc, lo, hi, base_rec=None):
         hp, wp = geom.hp, geom.wp
         self.nchunks = geom.spec.nchunks
+        pointwise = target.dim() == 3  # [B, H, W] per-point targets
         self.args = dict(
             ci=ci, ref=_pad_to(data_ref, hp, wp), kind=kind,
             levels=geom.levels, nchunks=self.nchunks, h=h, w=w, dc=dc,
-            lo=lo, hi=hi, tgt=target,
+            lo=lo, hi=hi, tgt=None if pointwise else target,
+            tgt_field=_pad_to(target, hp, wp) if pointwise else None,
             base_rec=None if base_rec is None else _pad_to(base_rec, hp, wp))
         self.workspace = (torch.empty(ci.shape, dtype=torch.float32,
                                       device=ci.device)
@@ -301,11 +303,13 @@ class FrameCodec:
     # ---------------- encode ----------------
 
     def encode_error_bounded_hostq(self, u, mn, mx, target, qbase: float):
-        """MAX_ERROR / RELATIVE_ERROR encode from host-quantised input.
+        """Error-bounded encode from host-quantised input.
 
         ``u``: int32 [B, H, W] holding the u16 planes; ``mn``/``mx``: f32
-        [B] host ranges; ``target``: f32 [B] error targets already
-        tightened by the per-frame quantisation error; ``qbase``: allowed
+        [B] host ranges; ``target``: f32 [B] per-frame error targets
+        (MAX_ERROR / RELATIVE_ERROR) or f32 [B, H, W] per-point targets
+        (POINTWISE_MAX_ERROR), already tightened by the per-frame
+        quantisation error; ``qbase``: allowed
         violating fraction of the base layer (j2k_codec.h:469).  All
         tensors on this codec's device."""
         dataq, const, dc, ci = self._hostq_prelude(u, mn, mx)

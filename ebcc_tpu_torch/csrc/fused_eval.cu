@@ -2,12 +2,15 @@
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel ebcc_tpu/ops/pallas_eval.py::eval_stats
-// (_build_call's kernel, scalar-target variants): per frame, reconstruct
+// (_build_call's kernel, scalar-target and per-point target-field
+// variants): per frame, reconstruct
 // the integer coefficients at one candidate — (plane b, js sig / jr refine
 // chunks) or (plane b, per-stripe drop mask) — midpoint-dequantise, divide
 // by the subband weight, run the levels-deep inverse CDF 9/7 transform,
 // apply the base or residual tail and reduce |ref - out| - tgt over the
-// valid h x w region to (max excess, violation count).
+// valid h x w region to (max excess, violation count).  tgt is the frame's
+// scalar target, or the point's entry of a [B, hp, wp] target field
+// (POINTWISE_MAX_ERROR).
 //
 // What bounds it here: memory traffic.  The TPU kernel kept the whole
 // 768x1472 f32 frame (4.5 MB) in VMEM; one block here has at most 227 KB
@@ -15,10 +18,9 @@
 // [B, hp, wp] in device memory (reused across evaluations) and the
 // evaluation runs as passes over it:
 //   1. compose: one thread per coefficient, ci -> workspace;
-//   2. per level L-1..0: a column pass (a block lifts a strip of 32
-//      columns of the level's hh x ww region in shared memory, so
-//      hh <= 1816) and a row pass (a block lifts a few whole rows in
-//      shared memory, ww <= 24576);
+//   2. per level L-1..0: the column and row lifting passes of
+//      lifting.cuh (eval_lift_cols, eval_lift_rows), in place on the
+//      workspace;
 //   3. tail + reduce over rows < h, cols < w: block reduction, then one
 //      atomic per block and frame (float max through the order-preserving
 //      int mapping, integer count).
@@ -30,8 +32,7 @@
 // column pass and the tail into the last row pass is the next step.
 //
 // Arithmetic is the native codec's, site by site (ebcc_cpu_decoder.cc:
-// 36-117, 313-330): each lifting step is __fmaf_rn of the float32 sum,
-// division by XI is a multiply by its f32 reciprocal, the unscale is
+// 36-117, 313-330): the lifting steps as lifting.cuh says, the unscale is
 // fma(y, RECIP * (hi - lo), lo), and the weight division is a true IEEE
 // division.  Build with -fmad=false so nvcc contracts nothing else.
 
@@ -39,23 +40,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "lifting.cuh"
+
 namespace {
 
-constexpr float ALPHA = -1.586134342f;
-constexpr float BETA = -0.05298011854f;
-constexpr float GAMMA = 0.8829110762f;
-constexpr float DELTA = 0.44355068522f;
-constexpr float XI = 1.149604398f;
-constexpr float RECIP_XI = (float)(1.0 / (double)XI);
 constexpr float RECIP_U16 = (float)(1.0 / 65535.0);
 constexpr float RECIP_RS = (float)(1.0 / 255.0);
 
 constexpr int kMaxSubbands = 3 * 8 + 1;  // MAX_LEVELS = 8
-constexpr int kColStrip = 32;            // columns per column-pass block
-constexpr int kColRows = 8;              // thread rows per column-pass block
-constexpr int kThreads = 256;
-constexpr int kRowSmem = 96 * 1024;      // row pass: rows per block fill this
-constexpr int kMaxSmem = 227 * 1024;     // opt-in limit of one block (H100)
 
 struct Peaks {
   float v[kMaxSubbands];
@@ -122,108 +114,29 @@ __global__ void compose(const int32_t* __restrict__ ci,
   work[(int64_t)fb * n + k] = rec / peaks.v[subband(r, c, hp, wp, levels)];
 }
 
-// 2a. inverse lifting along columns of the top-left hh x ww region: block
-// (kColStrip, kColRows) owns columns [c0, c0 + kColStrip) of one frame
-__global__ void lift_cols(float* __restrict__ work, int hp, int wp, int hh,
-                          int ww) {
-  extern __shared__ float sm[];  // [hh][kColStrip]
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int c = blockIdx.x * kColStrip + tx;
-  float* x = work + (int64_t)blockIdx.y * hp * wp;
-  for (int r = ty; r < hh; r += kColRows)
-    sm[r * kColStrip + tx] = c < ww ? x[(int64_t)r * wp + c] : 0.0f;
-  __syncthreads();
-  const int n2 = hh / 2;
-  float* s = sm;                       // rows [0, n2)
-  float* d = sm + n2 * kColStrip;      // rows [n2, hh)
-#define S(i) s[(i) * kColStrip + tx]
-#define D(i) d[(i) * kColStrip + tx]
-  for (int i = ty; i < n2; i += kColRows) {
-    S(i) = S(i) * RECIP_XI;
-    D(i) = D(i) * XI;
-  }
-  __syncthreads();
-  for (int i = ty; i < n2; i += kColRows)
-    S(i) = __fmaf_rn(-DELTA, D(i) + D(i == 0 ? 1 : i - 1), S(i));
-  __syncthreads();
-  for (int i = ty; i < n2; i += kColRows)
-    D(i) = __fmaf_rn(-GAMMA, S(i) + S(i + 1 < n2 ? i + 1 : n2 - 2), D(i));
-  __syncthreads();
-  for (int i = ty; i < n2; i += kColRows)
-    S(i) = __fmaf_rn(-BETA, D(i) + D(i == 0 ? 1 : i - 1), S(i));
-  __syncthreads();
-  for (int i = ty; i < n2; i += kColRows)
-    D(i) = __fmaf_rn(-ALPHA, S(i) + S(i + 1 < n2 ? i + 1 : n2 - 1), D(i));
-  __syncthreads();
-  if (c < ww)
-    for (int r = ty; r < hh; r += kColRows)
-      x[(int64_t)r * wp + c] = (r & 1) ? D(r >> 1) : S(r >> 1);
-#undef S
-#undef D
+// 2. the lifting passes of lifting.cuh
+__global__ void eval_lift_cols(float* __restrict__ work, int hp, int wp,
+                               int hh, int ww) {
+  lift_cols_block(work, hp, wp, hh, ww);
 }
 
-// 2b. inverse lifting along rows: a block owns rows [r0, r0 + rows) of the
-// top-left hh x ww region of one frame
-__global__ void lift_rows(float* __restrict__ work, int hp, int wp, int hh,
-                          int ww, int rows) {
-  extern __shared__ float sm[];  // [rows][ww]
-  const int r0 = blockIdx.x * rows;
-  const int nr = min(rows, hh - r0);
-  float* x = work + (int64_t)blockIdx.y * hp * wp + (int64_t)r0 * wp;
-  for (int k = threadIdx.x; k < nr * ww; k += kThreads) {
-    const int rr = k / ww, c = k - rr * ww;
-    sm[k] = x[(int64_t)rr * wp + c];
-  }
-  __syncthreads();
-  const int n2 = ww / 2;
-  const int m = nr * n2;
-#define ROW(k) float* s = sm + ((k) / n2) * ww; float* d = s + n2; \
-               const int i = (k) % n2;
-  for (int k = threadIdx.x; k < m; k += kThreads) {
-    ROW(k)
-    s[i] = s[i] * RECIP_XI;
-    d[i] = d[i] * XI;
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < m; k += kThreads) {
-    ROW(k)
-    s[i] = __fmaf_rn(-DELTA, d[i] + d[i == 0 ? 1 : i - 1], s[i]);
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < m; k += kThreads) {
-    ROW(k)
-    d[i] = __fmaf_rn(-GAMMA, s[i] + s[i + 1 < n2 ? i + 1 : n2 - 2], d[i]);
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < m; k += kThreads) {
-    ROW(k)
-    s[i] = __fmaf_rn(-BETA, d[i] + d[i == 0 ? 1 : i - 1], s[i]);
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < m; k += kThreads) {
-    ROW(k)
-    d[i] = __fmaf_rn(-ALPHA, s[i] + s[i + 1 < n2 ? i + 1 : n2 - 1], d[i]);
-  }
-  __syncthreads();
-#undef ROW
-  for (int k = threadIdx.x; k < nr * ww; k += kThreads) {
-    const int rr = k / ww, c = k - rr * ww;
-    const float* s = sm + rr * ww;
-    x[(int64_t)rr * wp + c] = (c & 1) ? s[n2 + (c >> 1)] : s[c >> 1];
-  }
+__global__ void eval_lift_rows(float* __restrict__ work, int hp, int wp,
+                               int hh, int ww, int rows) {
+  lift_rows_block(work, hp, wp, hh, ww, rows);
 }
 
 // 3. tail + reduce over the valid h x w region of each frame
 __global__ void tail_reduce(const float* __restrict__ work,
                             const float* __restrict__ ref,
                             const float* __restrict__ base_rec,
+                            const float* __restrict__ tgt_field,
                             const float* __restrict__ fparams, int hp,
                             int wp, int h, int w, int resid,
                             int32_t* stats) {
   const int fb = blockIdx.y;
   const int64_t k = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const float* fp = fparams + 4 * fb;
-  const float dc = fp[0], lo = fp[1], hi = fp[2], tgt = fp[3];
+  const float dc = fp[0], lo = fp[1], hi = fp[2];
   float mx = -INFINITY;
   int cnt = 0;
   if (k < (int64_t)h * w) {
@@ -238,6 +151,7 @@ __global__ void tail_reduce(const float* __restrict__ work,
       y = fminf(fmaxf(y, 0.0f), 65535.0f);
       out = __fmaf_rn(y, RECIP_U16 * (hi - lo), lo);
     }
+    const float tgt = tgt_field ? tgt_field[off] : fp[3];
     const float err = fabsf(ref[off] - out) - tgt;
     mx = err;
     cnt = err > 0.0f;
@@ -268,14 +182,16 @@ __global__ void tail_reduce(const float* __restrict__ work,
 
 extern "C" {
 
-// ci int32 [B, hp, wp]; ref, base_rec (resid only, else NULL) f32
-// [B, hp, wp]; iparams int32 [B, 4] = (b, js, jr, dropmask); fparams f32
-// [B, 4] = (dc, lo, hi, tgt); peaks: host array of 3 * levels + 1 subband
+// ci int32 [B, hp, wp]; ref, base_rec (resid only, else NULL) and
+// tgt_field (per-point targets, else NULL) f32 [B, hp, wp]; iparams int32
+// [B, 4] = (b, js, jr, dropmask); fparams f32 [B, 4] = (dc, lo, hi, tgt;
+// tgt unread when tgt_field is given); peaks: host array of 3 * levels + 1 subband
 // weights; work f32 [B, hp, wp] scratch; stats int32 [B, 2] = (float key
 // of the max excess, violation count).  kind: 0 base, 1 resid; mode: 0
 // trunc, 1 masked.  Returns cudaGetLastError().
 int ebcc_fused_eval(int device, const int32_t* ci, const float* ref,
-                    const float* base_rec, const int32_t* iparams,
+                    const float* base_rec, const float* tgt_field,
+                    const int32_t* iparams,
                     const float* fparams, const float* peaks, int B, int hp,
                     int wp, int levels, int nchunks, int h, int w, int kind,
                     int mode, float* work, int32_t* stats,
@@ -291,30 +207,13 @@ int ebcc_fused_eval(int device, const int32_t* ci, const float* ref,
             stream>>>(ci, iparams, pk, hp, wp, levels, nchunks, mode == 1,
                       work, stats);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  for (int i = levels - 1; i >= 0; --i) {
-    const int hh = hp >> i, ww = wp >> i;
-    const int col_bytes = hh * kColStrip * (int)sizeof(float);
-    const int rows = min(64, kRowSmem / (ww * (int)sizeof(float)));
-    if (col_bytes > kMaxSmem || rows < 1) return (int)cudaErrorInvalidValue;
-    cudaFuncSetAttribute(lift_cols,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         col_bytes);
-    lift_cols<<<dim3((ww + kColStrip - 1) / kColStrip, B),
-                dim3(kColStrip, kColRows), col_bytes, stream>>>(
-        work, hp, wp, hh, ww);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    const int row_bytes = rows * ww * (int)sizeof(float);
-    cudaFuncSetAttribute(lift_rows,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         row_bytes);
-    lift_rows<<<dim3((hh + rows - 1) / rows, B), kThreads, row_bytes,
-                stream>>>(work, hp, wp, hh, ww, rows);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  }
+  if ((e = inverse_levels(eval_lift_cols, eval_lift_rows, work, B, hp, wp,
+                          levels, stream)) != cudaSuccess)
+    return (int)e;
   const int64_t nv = (int64_t)h * w;
   tail_reduce<<<dim3((unsigned)((nv + kThreads - 1) / kThreads), B),
-                kThreads, 0, stream>>>(work, ref, base_rec, fparams, hp, wp,
-                                       h, w, kind == 1, stats);
+                kThreads, 0, stream>>>(work, ref, base_rec, tgt_field, fparams,
+                                       hp, wp, h, w, kind == 1, stats);
   return (int)cudaGetLastError();
 }
 

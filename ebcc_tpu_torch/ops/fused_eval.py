@@ -1,11 +1,12 @@
 """Candidate evaluation of the truncation and chunk-mask searches (kernel K1).
 
-Counterpart of ``ebcc_tpu/ops/pallas_eval.py::eval_stats``, scalar-target
-variants: kind ("base" | "resid" reconstruction tail) x mode ("trunc"
-prefix candidates | "masked" chunk-mask candidates).  Per frame, one
-candidate is reconstructed from the integer coefficients, inverse
-transformed and reduced to (max excess, violation count) over the valid
-h x w region.
+Counterpart of ``ebcc_tpu/ops/pallas_eval.py::eval_stats``: kind ("base"
+| "resid" reconstruction tail) x mode ("trunc" prefix candidates |
+"masked" chunk-mask candidates), with a per-frame scalar target ``tgt``
+or a per-point target field ``tgt_field`` (POINTWISE_MAX_ERROR).  Per
+frame, one candidate is reconstructed from the integer coefficients,
+inverse transformed and reduced to (max excess, violation count) over the
+valid h x w region.
 
 :func:`eval_stats` launches the CUDA kernel (``csrc/fused_eval.cu``) for
 CUDA tensors and runs :func:`eval_stats_ref`, the plain torch version, for
@@ -23,6 +24,7 @@ import torch
 from ..runtime import cuda
 from . import bitplane as bp
 from . import dwt, frame, weights
+from .idwt import supported
 
 _KINDS = ("base", "resid")
 _MODES = ("trunc", "masked")
@@ -30,27 +32,8 @@ _MODES = ("trunc", "masked")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = cuda.Kernel(
     "fused_eval", "ebcc_fused_eval",
-    [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-     _P])
-
-
-# the CUDA kernel's shared-memory tiles: a 32-column strip of the full
-# height, and at least one whole row (csrc/fused_eval.cu)
-MAX_ROWS = 227 * 1024 // (32 * 4)
-MAX_COLS = 96 * 1024 // 4
-
-
-def supported(hp: int, wp: int, levels: int) -> bool:
-    """Every level's sub-shape even and >= 4 in both dims (the lifting's
-    requirement; always true for padded codec geometries), and the frame
-    within the CUDA kernel's tiles (hp <= 1816, wp <= 24576)."""
-    if hp > MAX_ROWS or wp > MAX_COLS:
-        return False
-    for i in range(levels):
-        hh, ww = hp >> i, wp >> i
-        if hh % 2 or ww % 2 or hh < 4 or ww < 4:
-            return False
-    return True
+    [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+     _P, _P])
 
 
 def _params(batch, device, b, js, jr, dropmask, dc, lo, hi, tgt):
@@ -76,7 +59,7 @@ def _params(batch, device, b, js, jr, dropmask, dc, lo, hi, tgt):
 def eval_stats_ref(ci, ref, b, *, kind: str, mode: str, levels: int,
                    nchunks: int, h: int, w: int, js=None, jr=None,
                    dropmask=None, dc=None, lo=None, hi=None, tgt=None,
-                   base_rec=None):
+                   base_rec=None, tgt_field=None):
     """Plain torch version of :func:`eval_stats` (same arguments): the
     closed-form reconstruction (``bitplane.recon_truncated`` /
     ``recon_masked``), the layer's reconstruction tail and the error
@@ -98,7 +81,7 @@ def eval_stats_ref(ci, ref, b, *, kind: str, mode: str, levels: int,
         rec = bp.recon_truncated(an, b, sig_chunks=js, refine_chunks=jr,
                                  spec=spec)
     wb = torch.from_numpy(weights.weight_array(hp, wp, levels)).to(ci.device)
-    y = dwt.idwt2d_multi(rec / wb, levels) + dc[:, None, None]
+    y = dwt.idwt2d_multi_ref(rec / wb, levels) + dc[:, None, None]
     y = frame.crop(y, h, w)
     if kind == "base":
         out = frame.unscale(y.clamp(0.0, frame.U16_MAX), lo, hi,
@@ -106,7 +89,9 @@ def eval_stats_ref(ci, ref, b, *, kind: str, mode: str, levels: int,
     else:
         out = frame.crop(base_rec, h, w) + frame.unscale(
             y.clamp(0.0, frame.RESID_SCALE), lo, hi, frame.RECIP_RS)
-    err = (frame.crop(ref, h, w) - out).abs() - tgt[:, None, None]
+    tgt = (tgt[:, None, None] if tgt_field is None
+           else frame.crop(tgt_field, h, w))
+    err = (frame.crop(ref, h, w) - out).abs() - tgt
     return (err.flatten(1).amax(-1),
             (err > 0).flatten(1).sum(-1).to(torch.int32))
 
@@ -114,15 +99,17 @@ def eval_stats_ref(ci, ref, b, *, kind: str, mode: str, levels: int,
 def eval_stats(ci, ref, b, *, kind: str, mode: str, levels: int,
                nchunks: int, h: int, w: int, js=None, jr=None,
                dropmask=None, dc=None, lo=None, hi=None, tgt=None,
-               base_rec=None, workspace=None):
+               base_rec=None, tgt_field=None, workspace=None):
     """(max excess, violation count) of one candidate per frame.
 
     ``ci``: int32 [B, hp, wp] integer coefficients; ``ref``: f32
     [B, hp, wp] comparison field (entries past (h, w) are ignored);
     ``b``/``js``/``jr``/``dropmask``: per-frame int candidates; ``dc``:
     per-frame DC; ``lo``/``hi``: (mn, mx) for kind="base", (rmin, rmax)
-    for kind="resid"; ``tgt``: per-frame error target; ``base_rec``: f32
-    [B, hp, wp] fixed base reconstruction (kind="resid" only);
+    for kind="resid"; ``tgt``: per-frame error target, or ``tgt_field``:
+    f32 [B, hp, wp] per-point targets (entries past (h, w) are ignored;
+    exactly one of the two is given); ``base_rec``: f32 [B, hp, wp] fixed
+    base reconstruction (kind="resid" only);
     ``workspace``: optional f32 [B, hp, wp] scratch the CUDA kernel
     reuses (allocated per call when None).  Returns (maxd f32 [B], count
     int32 [B]).
@@ -131,11 +118,14 @@ def eval_stats(ci, ref, b, *, kind: str, mode: str, levels: int,
         raise ValueError(f"unknown variant kind={kind!r} mode={mode!r}")
     if (kind == "resid") != (base_rec is not None):
         raise ValueError("base_rec is required for kind='resid' only")
+    if (tgt is None) == (tgt_field is None):
+        raise ValueError("give exactly one of tgt and tgt_field")
     if ci.device.type == "cpu":
         return eval_stats_ref(ci, ref, b, kind=kind, mode=mode,
                               levels=levels, nchunks=nchunks, h=h, w=w,
                               js=js, jr=jr, dropmask=dropmask, dc=dc, lo=lo,
-                              hi=hi, tgt=tgt, base_rec=base_rec)
+                              hi=hi, tgt=tgt, base_rec=base_rec,
+                              tgt_field=tgt_field)
     batch, hp, wp = ci.shape
     if not supported(hp, wp, levels) or h > hp or w > wp:
         raise ValueError(f"eval_stats: unsupported geometry {hp}x{wp}, "
@@ -146,6 +136,8 @@ def eval_stats(ci, ref, b, *, kind: str, mode: str, levels: int,
     cuda.require_cuda_tensor(ref, "ref", torch.float32, shape)
     if base_rec is not None:
         cuda.require_cuda_tensor(base_rec, "base_rec", torch.float32, shape)
+    if tgt_field is not None:
+        cuda.require_cuda_tensor(tgt_field, "tgt_field", torch.float32, shape)
     if workspace is None:
         workspace = torch.empty(shape, dtype=torch.float32, device=dev)
     cuda.require_cuda_tensor(workspace, "workspace", torch.float32, shape)
@@ -155,6 +147,7 @@ def eval_stats(ci, ref, b, *, kind: str, mode: str, levels: int,
     stats = torch.empty((batch, 2), dtype=torch.int32, device=dev)
     KERNEL.launch(dev, ci.data_ptr(), ref.data_ptr(),
                   None if base_rec is None else base_rec.data_ptr(),
+                  None if tgt_field is None else tgt_field.data_ptr(),
                   iparams.data_ptr(), fparams.data_ptr(), peaks.ctypes.data,
                   batch, hp, wp, levels, nchunks, h, w, _KINDS.index(kind),
                   _MODES.index(mode), workspace.data_ptr(), stats.data_ptr())

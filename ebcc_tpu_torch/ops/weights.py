@@ -45,7 +45,7 @@ def synthesis_peaks(levels: int) -> tuple:
         cy, cx = ys[len(ys) // 2], xs[len(xs) // 2]
         imp = torch.zeros((1, n, n), dtype=torch.float32)
         imp[0, cy, cx] = 1.0
-        rec = dwt.idwt2d_multi(imp, levels).numpy()
+        rec = dwt.idwt2d_multi_ref(imp, levels).numpy()
         peaks[sid] = float(np.round(np.max(np.abs(rec)) * 1024.0) / 1024.0)
     return tuple(peaks)
 

@@ -5,7 +5,7 @@ The native encoder replicates the device pipeline's arithmetic (fma sites,
 reciprocal multiplies, bisection and greedy-mask rules), so on identical
 input and config it emits the same container bytes as
 :func:`ebcc_tpu_torch.compress`.  It is the oracle the port is checked
-against.  POINTWISE_MAX_ERROR is not part of this package.
+against.
 """
 
 from __future__ import annotations
@@ -15,20 +15,19 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from ..api import pointwise_targets
 from ..codec import container
 from ..codec.config import (EBCCConfig, ResidualMode, base_error_quantile,
                             pure_fallback_disabled)
 from . import native as _native
 
 
-def compress(data, config: EBCCConfig | None = None, *,
+def compress(data, config: EBCCConfig | None = None, *, error_bound=None,
              qbase: float | None = None) -> bytes:
     """Compress ``data`` ([..., H, W] float32) into a container blob on the
-    CPU, one frame per native call (the calls release the GIL)."""
+    CPU, one frame per native call (the calls release the GIL).
+    ``error_bound``: the per-point bound array of POINTWISE_MAX_ERROR."""
     config = config or EBCCConfig()
-    if config.mode == ResidualMode.POINTWISE_MAX_ERROR:
-        raise ValueError("POINTWISE_MAX_ERROR is not supported by "
-                         "ebcc_tpu_torch")
     data = np.asarray(data, np.float32)
     if data.ndim < 2:
         raise ValueError("data must be at least 2-D")
@@ -40,6 +39,15 @@ def compress(data, config: EBCCConfig | None = None, *,
         raise ValueError("NaN or Inf in data (j2k_codec.h:451-458)")
     if qbase is None:
         qbase = base_error_quantile()
+    targets = None
+    if config.mode == ResidualMode.POINTWISE_MAX_ERROR:
+        if error_bound is None:
+            raise ValueError("POINTWISE_MAX_ERROR requires error_bound")
+        eb = np.asarray(error_bound, np.float32).reshape(frames.shape)
+        # the same targets api.compress searches against, so the
+        # containers stay byte-identical
+        targets = np.ascontiguousarray(pointwise_targets(
+            frames, eb, config.pointwise_max_error_ratio), np.float32)
     enc = _native.lib().ebcc_cpu_encode_frame
     cap = 8 * h * w + 65536
     # 0 = masking off, 1 = greedy scan, 2 = union rule
@@ -48,7 +56,8 @@ def compress(data, config: EBCCConfig | None = None, *,
 
     def run(i):
         out = np.zeros(cap, np.uint8)
-        sz = enc(frames[i].ctypes.data, None, h, w, int(config.mode),
+        tgt = None if targets is None else targets[i].ctypes.data
+        sz = enc(frames[i].ctypes.data, tgt, h, w, int(config.mode),
                  float(config.error), float(config.base_cr),
                  float(config.residual_cr), float(qbase),
                  1 if pure_fallback_disabled() else 0, mask_rule,

@@ -1,9 +1,11 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-Each kernel is one CUDA C++ source in ``csrc/`` with a plain C interface.
-On first use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
-shared library under ``ebcc_tpu_torch/build/`` (keyed on a hash of the
-source and flags) and loaded with ctypes.  Every C entry launches on the
+Each kernel is one CUDA C++ source ``csrc/<name>.cu`` with a plain C
+interface, plus the ``csrc/*.cuh`` headers it includes.  On first use it is
+compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``ebcc_tpu_torch/build/`` (keyed on a hash of the source, every header it
+includes, found from its ``#include "..."`` lines, and the flags) and loaded
+with ctypes.  Every C entry launches on the
 stream it is given, allocates nothing and returns ``cudaGetLastError()``;
 :meth:`Kernel.launch` raises when that is not ``cudaSuccess``.
 """
@@ -12,8 +14,10 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -36,27 +40,46 @@ def nvcc() -> str:
     return found
 
 
-class Kernel:
-    """One CUDA source: its lazily built library and its launch count.
+def included_sources(path: str) -> list[str]:
+    """``path`` and every file it includes with ``#include "..."``,
+    transitively (paths relative to the including file)."""
+    out, todo = [], [path]
+    while todo:
+        p = todo.pop()
+        if p in out:
+            continue
+        out.append(p)
+        with open(p) as f:
+            todo += [os.path.join(os.path.dirname(p), inc) for inc in
+                     re.findall(r'^#include "([^"]+)"', f.read(), re.M)]
+    return out
 
-    ``launches`` counts calls of :meth:`launch`, the only place the
-    wrapper starts the kernel; a caller resets it to 0 to count one run.
+
+class Kernel:
+    """One CUDA kernel library, built from ``csrc/<name>.cu``: its lazily
+    built library and its launch count.
+
+    ``sources``: the ``.cu`` file first, then every header it includes; the
+    build is keyed on all of them.  ``launches`` counts calls of
+    :meth:`launch`, the only place the wrapper starts the kernel; a caller
+    resets it to 0 to count one run.
     """
 
     def __init__(self, name: str, entry: str, argtypes: list):
         self.name, self.entry, self.argtypes = name, entry, argtypes
+        self.source = os.path.join(build.CSRC_DIR, f"{name}.cu")
         self.launches = 0
         self.build_seconds = None
         self._lib = None
 
     @property
-    def source(self) -> str:
-        return os.path.join(build.CSRC_DIR, f"{self.name}.cu")
+    def sources(self) -> list[str]:
+        return included_sources(self.source)
 
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
             t0 = time.perf_counter()
-            key = build.source_key([self.source], NVCC_FLAGS)
+            key = build.source_key(self.sources, NVCC_FLAGS)
 
             def compile_into(tmp):
                 so = os.path.join(tmp, f"lib{self.name}.so")
@@ -84,6 +107,13 @@ class Kernel:
         if rc != 0:
             msg = lib.ebcc_cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: launch failed: {msg} ({rc})")
+
+
+def build_all(kernels) -> None:
+    """Build (or load from the cache) every kernel's library, one ``nvcc``
+    per kernel, all started together."""
+    with ThreadPoolExecutor(max_workers=max(1, len(kernels))) as ex:
+        list(ex.map(Kernel.lib, kernels))
 
 
 def require_cuda_tensor(t: torch.Tensor, name: str, dtype, shape) -> None:

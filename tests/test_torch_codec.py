@@ -6,6 +6,9 @@ the native CPU codec.
 * blobs cross both ways: the JAX package, the port and the native decoder
   each decode the others' blobs within the bound, and the port's and
   JAX's reconstructions agree to the documented device-vs-native gap;
+* POINTWISE_MAX_ERROR against a per-point bound array: the same byte
+  identity, the bound through every decoder, the pointwise flag;
+* ``decode_backend`` routes the decode;
 * configurations cross; the package imports without JAX; asking for CUDA
   without it raises.
 """
@@ -161,6 +164,93 @@ def test_deep_decode_takes_float_coefficient_path(monkeypatch):
     assert np.abs(rec - data).max() <= 2e-3
 
 
+PW_JCFG = dataclasses.replace(
+    JAX_CFG, mode=ebcc_tpu.ResidualMode.POINTWISE_MAX_ERROR, error=0.3)
+PW_CFG = EBCCConfig(**dataclasses.asdict(PW_JCFG))
+
+
+def _pointwise_bound(shape, seed=13):
+    rng = np.random.default_rng(seed)
+    return (0.25 + 0.35 * rng.random(shape)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def pointwise():
+    """(data, per-point bound, port blob, JAX blob) of a POINTWISE batch
+    (the config of tests/test_pallas_eval.py's pointwise test)."""
+    data = _data()
+    eb = _pointwise_bound(data.shape)
+    return (data, eb,
+            ebcc_tpu_torch.compress(data, PW_CFG, error_bound=eb,
+                                    device="cpu"),
+            ebcc_tpu.compress(data, PW_JCFG, error_bound=eb))
+
+
+def test_pointwise_targets_bit_equal_to_jax():
+    from ebcc_tpu.api import pointwise_targets as jax_targets
+
+    data = _data(3, seed=2)
+    eb = _pointwise_bound(data.shape, seed=4)
+    eb[0, :4] = 1e-6  # below two quanta: the half-bound floor applies
+    for ratio in (1.0, 0.8):
+        ours = api.pointwise_targets(data, eb, ratio)
+        assert ours.dtype == np.float32
+        np.testing.assert_array_equal(
+            ours.view(np.uint32), jax_targets(data, eb, ratio).view(np.uint32))
+
+
+def test_pointwise_containers_byte_identical(pointwise):
+    data, eb, ours, theirs = pointwise
+    assert ours == theirs
+    assert ours == cpu_encoder.compress(data, PW_CFG, error_bound=eb)
+
+
+def test_pointwise_bound_through_every_decoder(pointwise):
+    data, eb, ours, _ = pointwise
+    for rec in (ebcc_tpu_torch.decompress(ours, PW_CFG, device="cpu"),
+                np.asarray(ebcc_tpu.decompress(ours, PW_JCFG)),
+                cpu_decoder.decompress(ours)):
+        assert rec.shape == data.shape
+        assert np.all(np.abs(rec - data) <= eb)
+
+
+def test_pointwise_flag_on_every_frame(pointwise):
+    _, _, ours, _ = pointwise
+    for f in container.unpack_blob(ours):
+        hdr = container.unpack_frame(f)[0]
+        assert hdr.flags & container.FLAG_POINTWISE
+        assert hdr.mode == int(ResidualMode.POINTWISE_MAX_ERROR)
+
+
+def test_pointwise_partial_batch_matches_native():
+    """Three frames at max_batch=2 with a scalar bound broadcast to every
+    point: the last batch's targets are its own slice of the field."""
+    data = _data(3, seed=8)
+    cfg = dataclasses.replace(PW_CFG, max_batch=2)
+    eb = np.full(data.shape, 0.2, np.float32)
+    blob = ebcc_tpu_torch.compress(data, cfg, error_bound=eb, device="cpu")
+    assert blob == cpu_encoder.compress(data, cfg, error_bound=eb)
+    rec = ebcc_tpu_torch.decompress(blob, device="cpu")
+    assert np.all(np.abs(rec - data) <= eb)
+
+
+@pytest.mark.parametrize("backend", ["cpu", "device", "auto"])
+def test_decode_backend_routes_the_decode(pointwise, monkeypatch, backend):
+    """"cpu" is the native CPU decoder; "device" and "auto" reconstruct on
+    the given device (here the CPU, with the kernels' plain versions)."""
+    _, _, blob, _ = pointwise
+    native_rec = cpu_decoder.decompress(blob)
+    calls = []
+    real = cpu_decoder.decompress
+    monkeypatch.setattr(cpu_decoder, "decompress",
+                        lambda b: calls.append(1) or real(b))
+    cfg = dataclasses.replace(PW_CFG, decode_backend=backend)
+    rec = ebcc_tpu_torch.decompress(blob, cfg, device="cpu")
+    assert bool(calls) == (backend == "cpu")
+    # the port's reconstruction follows the native decoder's arithmetic
+    np.testing.assert_array_equal(rec, native_rec)
+
+
 def test_config_round_trips_from_jax():
     jcfg = ebcc_tpu.EBCCConfig(mode=ebcc_tpu.ResidualMode.RELATIVE_ERROR,
                                error=0.01, base_cr=50, nchunks=4,
@@ -178,7 +268,8 @@ def test_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['ebcc_tpu'] = None; import ebcc_tpu_torch; "
             "import ebcc_tpu_torch.runtime.cpu_encoder, "
-            "ebcc_tpu_torch.runtime.cpu_decoder; "
+            "ebcc_tpu_torch.runtime.cpu_decoder, ebcc_tpu_torch.models, "
+            "ebcc_tpu_torch.dataprep; "
             "assert 'jax.numpy' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
@@ -197,7 +288,15 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
 def test_unsupported_modes_raise():
     data = _data(1)
     for cfg in (EBCCConfig(mode=ResidualMode.NONE),
-                EBCCConfig(mode=ResidualMode.POINTWISE_MAX_ERROR),
+                EBCCConfig(mode=ResidualMode.SPARSIFICATION_FACTOR),
                 EBCCConfig(error=0.5, mask_search="union")):
         with pytest.raises(ValueError):
             api.compress(data, cfg, device="cpu")
+
+
+def test_pointwise_without_bound_raises():
+    cfg = EBCCConfig(mode=ResidualMode.POINTWISE_MAX_ERROR)
+    with pytest.raises(ValueError, match="error_bound"):
+        api.compress(_data(1), cfg, device="cpu")
+    with pytest.raises(ValueError, match="error_bound"):
+        cpu_encoder.compress(_data(1), cfg)

@@ -16,9 +16,11 @@ import ebcc_tpu_torch
 from ebcc_tpu_torch.codec.config import EBCCConfig, ResidualMode
 from ebcc_tpu_torch.codec.pipeline import FrameCodec, _Eval
 from ebcc_tpu_torch.ops import bitplane as bp
+from ebcc_tpu_torch.ops import dwt
 from ebcc_tpu_torch.ops import fused_eval as fe
+from ebcc_tpu_torch.ops import idwt
 from ebcc_tpu_torch.ops import level0_counts as l0
-from ebcc_tpu_torch.runtime import cpu_encoder, native
+from ebcc_tpu_torch.runtime import cpu_decoder, cpu_encoder, native
 
 pytestmark = pytest.mark.cuda
 
@@ -55,7 +57,7 @@ def test_level0_counts_kernel_matches_plain(card):
                                                      j))
 
 
-def _layers(dev):
+def _layers(dev, pointwise=False):
     cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.25, base_cr=200,
                      max_batch=B)
     c = FrameCodec(H, W, cfg, dev)
@@ -63,7 +65,12 @@ def _layers(dev):
     mn, mx = torch.from_numpy(mn).to(dev), torch.from_numpy(mx).to(dev)
     dataq, _, dc, ci = c._hostq_prelude(
         torch.from_numpy(u.astype(np.int32)).to(dev), mn, mx)
-    tgt = torch.from_numpy(np.full(B, 0.25, np.float32) - maxq).to(dev)
+    if pointwise:
+        eb = 0.2 + 0.2 * np.random.default_rng(9).random((B, H, W))
+        tgt = torch.from_numpy(eb.astype(np.float32) -
+                               maxq[:, None, None]).to(dev)
+    else:
+        tgt = torch.from_numpy(np.full(B, 0.25, np.float32) - maxq).to(dev)
     an = bp.analyze(ci, c.base.spec)
     coef = bp.recon_truncated(an, torch.full((B,), 8, dtype=torch.int32,
                                              device=dev), spec=c.base.spec)
@@ -75,9 +82,12 @@ def _layers(dev):
                             rmin, rmax, base_rec=base_rec))]
 
 
-def test_eval_stats_kernel_matches_plain(card):
+@pytest.mark.parametrize("pointwise", [False, True],
+                         ids=["scalar", "target_field"])
+def test_eval_stats_kernel_matches_plain(card, pointwise):
     vec = torch.arange(B, dtype=torch.int32, device=card)
-    for geom, ev in _layers(card):
+    for geom, ev in _layers(card, pointwise):
+        assert (ev.args["tgt_field"] is not None) == pointwise
         a = dict(ev.args)
         ci, ref = a.pop("ci"), a.pop("ref")
         p, j = geom.spec.nplanes, geom.spec.nchunks
@@ -107,6 +117,45 @@ def test_eval_stats_rejects_bad_tensors(card):
                       b, mode="trunc", **a)
     with pytest.raises(ValueError):  # mixed devices
         fe.eval_stats(ci, ref.cpu(), b, mode="trunc", **a)
+
+
+@pytest.mark.parametrize("shape,levels", [((16, 768, 1472), 5),
+                                          ((16, 736, 1440), 3),
+                                          ((1, 768, 1472), 1),
+                                          ((1, 768, 1472), 5),
+                                          ((3, 96, 160), 3)])
+def test_idwt_kernel_matches_plain(card, shape, levels):
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 100, shape).astype(np.float32)).to(card)
+    out = dwt.idwt2d_multi(x, levels)
+    ref = dwt.idwt2d_multi_ref(x, levels)
+    assert torch.equal(out, ref)
+    assert torch.equal(x, x.clone())  # the input is left as it was
+
+
+def test_idwt_rejects_bad_tensors(card):
+    x = torch.zeros((2, 96, 160), device=card)
+    with pytest.raises(ValueError):  # wrong dtype
+        idwt.idwt2d_multi_cuda(x.double(), 3)
+    with pytest.raises(ValueError):  # not contiguous
+        idwt.idwt2d_multi_cuda(x.transpose(1, 2), 3)
+    with pytest.raises(ValueError):  # odd level sub-shape
+        idwt.idwt2d_multi_cuda(torch.zeros((1, 90, 160), device=card), 3)
+
+
+def test_cuda_pointwise_compress_matches_cpu_and_native(card):
+    data = _field(5, seed=4)
+    eb = (0.2 + 0.3 * np.random.default_rng(5).random(data.shape)).astype(
+        np.float32)
+    cfg = EBCCConfig(mode=ResidualMode.POINTWISE_MAX_ERROR, base_cr=200,
+                     max_batch=2)
+    blob = ebcc_tpu_torch.compress(data, cfg, error_bound=eb, device="cuda")
+    assert blob == ebcc_tpu_torch.compress(data, cfg, error_bound=eb,
+                                           device="cpu")
+    assert blob == cpu_encoder.compress(data, cfg, error_bound=eb)
+    rec = ebcc_tpu_torch.decompress(blob, cfg, device="cuda")
+    np.testing.assert_array_equal(rec, cpu_decoder.decompress(blob))
+    assert np.all(np.abs(rec - data) <= eb)
 
 
 def test_cuda_compress_matches_cpu_and_native(card):

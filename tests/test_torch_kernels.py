@@ -8,11 +8,16 @@ seeds, both packages fed identical arrays):
   ``ebcc_tpu/ops/pallas_kernels.py``), and the assembled segment counts
   equal to ``ebcc_tpu.ops.bitplane.segment_counts``;
 * candidate evaluation: the tolerances and feasibility-decision checks of
-  tests/test_pallas_eval.py, for the four scalar-target variants.
+  tests/test_pallas_eval.py, for the four scalar-target variants and the
+  four per-point target-field variants;
+* every kernel library's build key covers each header its source
+  includes, so a header edit rebuilds it.
 
 tests/test_torch_cuda.py compares each CUDA kernel with its plain version
 on a card.
 """
+
+import os
 
 import numpy as np
 import jax.numpy as jnp
@@ -27,8 +32,9 @@ from ebcc_tpu_torch.codec.config import EBCCConfig, ResidualMode
 from ebcc_tpu_torch.codec.pipeline import FrameCodec, _Eval
 from ebcc_tpu_torch.ops import bitplane as bp
 from ebcc_tpu_torch.ops import fused_eval as fe
+from ebcc_tpu_torch.ops import idwt
 from ebcc_tpu_torch.ops import level0_counts as l0
-from ebcc_tpu_torch.runtime import native
+from ebcc_tpu_torch.runtime import build, cuda, native
 
 B, H, W = 2, 96, 160
 
@@ -78,11 +84,36 @@ def test_level0_supported_gate():
     assert not l0.level0_supported(64, 64, 0, 8)   # no quadtree
 
 
-@pytest.fixture(scope="module")
-def layers():
+@pytest.mark.parametrize("kernel", [l0.KERNEL, fe.KERNEL, idwt.KERNEL],
+                         ids=lambda k: k.name)
+def test_kernel_build_keyed_on_every_included_header(kernel, tmp_path):
+    """The build key covers the .cu file and every header it includes: an
+    edit of a copy of any of them changes the key."""
+    srcs = kernel.sources
+    assert srcs[0].endswith(f"{kernel.name}.cu")
+    names = [os.path.basename(s) for s in srcs]
+    assert ("lifting.cuh" in names) == (kernel.name != "level0_counts")
+    for s in srcs:
+        (tmp_path / os.path.basename(s)).write_bytes(open(s, "rb").read())
+    copy = cuda.included_sources(str(tmp_path / names[0]))
+    assert [os.path.basename(s) for s in copy] == names
+    key = build.source_key(copy, cuda.NVCC_FLAGS)
+    for s in copy:
+        with open(s, "a") as f:
+            f.write("\n// edit\n")
+        new_key = build.source_key(cuda.included_sources(copy[0]),
+                                   cuda.NVCC_FLAGS)
+        assert new_key != key
+        key = new_key
+
+
+def _make_layers(pointwise: bool):
     """Both layers' evaluation inputs for a 2-frame 96x160 batch (the
     geometry and config of tests/test_pallas_eval.py), made by the port:
-    the base layer, and the residual against base@(plane 8, chunk 3)."""
+    the base layer, and the residual against base@(plane 8, chunk 3).
+    ``pointwise``: per-point targets of 0.2-0.4 (the target field of
+    tests/test_pallas_eval.py's pointwise test) instead of one per
+    frame."""
     rng = np.random.default_rng(0)
     y, x = np.mgrid[0:H, 0:W]
     base = (260 + 25 * np.sin(y / H * np.pi) *
@@ -96,7 +127,12 @@ def layers():
     mn, mx = torch.from_numpy(mn), torch.from_numpy(mx)
     dataq, _, dc, ci = c._hostq_prelude(
         torch.from_numpy(u.astype(np.int32)), mn, mx)
-    target = torch.from_numpy(np.full(B, 0.25, np.float32) - maxq)
+    if pointwise:
+        tgt = (0.2 + 0.2 * np.random.default_rng(9).random((B, H, W)))
+        target = torch.from_numpy(tgt.astype(np.float32) -
+                                  maxq[:, None, None])
+    else:
+        target = torch.from_numpy(np.full(B, 0.25, np.float32) - maxq)
     ev_b = _Eval(c.base, H, W, ci, dataq, target, "base", dc, mn, mx)
     an = bp.analyze(ci, c.base.spec)
     coef = c._recon_at(an, c.base, torch.full((B,), 8, dtype=torch.int32),
@@ -106,6 +142,16 @@ def layers():
     ev_r = _Eval(c.resid, H, W, cir, dataq, target, "resid", dcr, rmin,
                  rmax, base_rec=base_rec)
     return c, ev_b, ev_r
+
+
+@pytest.fixture(scope="module")
+def layers():
+    return _make_layers(pointwise=False)
+
+
+@pytest.fixture(scope="module")
+def pw_layers():
+    return _make_layers(pointwise=True)
 
 
 def _both(ev, mode, b, **cand):
@@ -122,7 +168,7 @@ def _both(ev, mode, b, **cand):
         nchunks=a["nchunks"], h=a["h"], w=a["w"],
         **{k: j(v) for k, v in cand.items()}, dc=j(a["dc"]), lo=j(a["lo"]),
         hi=j(a["hi"]), tgt=j(a["tgt"]), base_rec=j(a["base_rec"]),
-        interpret=True)
+        tgt_field=j(a["tgt_field"]), interpret=True)
     return ours, theirs
 
 
@@ -168,12 +214,41 @@ def test_eval_stats_masked_matches_pallas(layers, kind):
         _assert_parity(ours, theirs, ev.inv_n)
 
 
+@pytest.mark.parametrize("mode", ["trunc", "masked"])
+@pytest.mark.parametrize("kind", ["base", "resid"])
+def test_eval_stats_target_field_matches_pallas(pw_layers, kind, mode):
+    """The per-point target-field variant (POINTWISE_MAX_ERROR) against
+    the Pallas kernel's ``tgt_field`` variant in interpret mode."""
+    c, ev_b, ev_r = pw_layers
+    ev, geom = (ev_b, c.base) if kind == "base" else (ev_r, c.resid)
+    assert ev.args["tgt"] is None
+    assert tuple(ev.args["tgt_field"].shape) == (B, geom.hp, geom.wp)
+    j = geom.spec.nchunks
+    rng = np.random.default_rng(5)
+    if mode == "trunc":
+        cands = [dict(js=_vec(j), jr=_vec(j), b=b)
+                 for b in range(0, geom.spec.nplanes, 4)]
+        cands += [dict(js=_vec(3), jr=_vec(0), b=6),
+                  dict(js=_vec(j), jr=_vec(5), b=6)]
+    else:
+        cands = [dict(dropmask=torch.from_numpy(
+            rng.integers(0, 1 << j, B).astype(np.int32)), b=b)
+            for b in (2, 6, 9)]
+    for cand in cands:
+        b = _vec(cand.pop("b"))
+        ours, theirs = _both(ev, mode, b, **cand)
+        _assert_parity(ours, theirs, ev.inv_n)
+
+
 def test_wrappers_reject_bad_variants(layers):
     _, ev_b, _ = layers
     a = dict(ev_b.args)
     ci, ref = a.pop("ci"), a.pop("ref")
     with pytest.raises(ValueError):
         fe.eval_stats(ci, ref, _vec(3), mode="union", **a)
+    with pytest.raises(ValueError):  # both a scalar and a field target
+        fe.eval_stats(ci, ref, _vec(3), mode="trunc",
+                      **{**a, "tgt_field": ref})
     a["kind"] = "resid"
     with pytest.raises(ValueError):  # resid needs base_rec
         fe.eval_stats(ci, ref, _vec(3), mode="trunc", **a)

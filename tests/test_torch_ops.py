@@ -18,11 +18,14 @@ from ebcc_tpu.codec.config import EBCCConfig as JaxConfig
 from ebcc_tpu.ops import bitplane as jbp
 from ebcc_tpu.ops import dwt as jdwt
 from ebcc_tpu.ops import weights as jweights
+from ebcc_tpu import dataprep as jdataprep
 
 from ebcc_tpu_torch.codec.config import EBCCConfig, ResidualMode
 from ebcc_tpu_torch.codec.pipeline import FrameCodec
 from ebcc_tpu_torch.ops import bitplane as bp
+from ebcc_tpu_torch import dataprep
 from ebcc_tpu_torch.ops import dwt, weights
+from ebcc_tpu_torch.ops import fused_eval as fe
 from ebcc_tpu_torch.runtime import native
 
 CPU = torch.device("cpu")
@@ -73,6 +76,61 @@ def test_dwt_matches_jax(levels):
     np.testing.assert_allclose(inv, inv_ref, rtol=0,
                                atol=1e-5 * np.abs(inv_ref).max())
     np.testing.assert_allclose(inv, x, rtol=0, atol=1e-4 * np.abs(x).max())
+
+
+@pytest.mark.parametrize("shape,levels", [((2, 96, 160), 3),
+                                          ((1, 128, 192), 5),
+                                          ((2, 96, 160), 1)])
+def test_idwt_dispatch_on_cpu_is_plain_and_near_jax(shape, levels):
+    """On a CPU tensor :func:`dwt.idwt2d_multi` is its plain version, bit
+    for bit, and within 1e-5 (relative to the largest value) of the JAX
+    package's inverse (XLA contracts other multiply-adds)."""
+    rng = np.random.default_rng(8)
+    x = rng.normal(0, 50, shape).astype(np.float32)
+    ours = dwt.idwt2d_multi(torch.from_numpy(x), levels).numpy()
+    ref = dwt.idwt2d_multi_ref(torch.from_numpy(x), levels).numpy()
+    np.testing.assert_array_equal(ours.view(np.uint32), ref.view(np.uint32))
+    jref = np.asarray(jdwt.idwt2d_multi(jnp.asarray(x), levels))
+    np.testing.assert_allclose(ours, jref, rtol=0,
+                               atol=1e-5 * np.abs(jref).max())
+
+
+def test_eval_stats_ref_stays_plain(monkeypatch):
+    """The plain candidate evaluation calls the plain inverse DWT, never
+    the dispatching one (which launches the kernel for CUDA tensors)."""
+    def boom(*a, **k):
+        raise AssertionError("eval_stats_ref reached dwt.idwt2d_multi")
+
+    monkeypatch.setattr(dwt, "idwt2d_multi", boom)
+    rng = np.random.default_rng(9)
+    ci = torch.from_numpy(rng.integers(-500, 500, (2, 64, 96)).astype(
+        np.int32))
+    ref = torch.from_numpy(rng.normal(0, 1, (2, 64, 96)).astype(np.float32))
+    maxd, cnt = fe.eval_stats_ref(ci, ref, torch.full((2,), 3), kind="base",
+                                  mode="trunc", levels=3, nchunks=8, h=60,
+                                  w=90, js=8, jr=8, dc=0.0, lo=0.0, hi=1.0,
+                                  tgt=0.1)
+    assert maxd.shape == cnt.shape == (2,)
+
+
+@pytest.mark.parametrize("fn", ["upsample_3t_2s", "interpolate_to_grid",
+                                "interpolate_time"])
+def test_dataprep_bit_equal_to_jax_package(fn):
+    rng = np.random.default_rng(10)
+    spread = (0.1 + rng.random((4, 19, 36))).astype(np.float32)
+    lat, lon = np.linspace(90, -90, 19), np.arange(0, 360, 10.0)
+    if fn == "upsample_3t_2s":
+        args = (spread,)
+    elif fn == "interpolate_to_grid":
+        args = (spread, lat, lon, np.linspace(-90, 90, 37),
+                np.arange(0, 360, 4.0))
+    else:
+        args = (spread, np.arange(4) * 6.0, np.arange(0, 20, 1.5))
+    ours = getattr(dataprep, fn)(*args)
+    theirs = getattr(jdataprep, fn)(*args)
+    assert ours.dtype == theirs.dtype == np.float32
+    np.testing.assert_array_equal(ours.view(np.uint32),
+                                  theirs.view(np.uint32))
 
 
 @pytest.fixture(scope="module")
