@@ -2,17 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the native host runtime and the three CUDA kernels from this
-checkout (one nvcc per kernel, all started together), holds each kernel
-against its plain torch version on the card at the shapes of the main
-paths, and drives two paths once each through the user entry points, on
-"cuda", with 32 frames of 721x1440 float32 (the bench recipe of bench.py):
+Builds the native host runtime and the CUDA kernel libraries from this
+checkout (one nvcc per library, all started together), holds each kernel
+against its plain torch version on the card at the shapes of its path, and
+drives three paths once each through the user entry points, on "cuda"; the
+two codec paths with 32 frames of 721x1440 float32 (the bench recipe of
+bench.py):
 
 * MAX_ERROR compress + decompress (error 0.5, batches of 16);
 * POINTWISE_MAX_ERROR compress + decompress against a per-point bound
   (a synthetic 0.5-degree ensemble spread upsampled to 721x1440 by
   ``dataprep.upsample_3t_2s``), then ``DirectCompressor`` over the same
-  frames as two slices of 16.
+  frames as two slices of 16;
+
+and the probe path, ``python -m ebcc_tpu_torch.scripts.idwt_probe`` at
+[1, 768, 1472] and [16, 768, 1472]: the five primitive probes of
+``csrc/idwt_probe.cu`` and the inverse DWT at 1 and 5 levels.
 
 It checks every result against the bound and against the native CPU codec
 (bytes of the encoder, bits of the decoder), and times the paths and each
@@ -189,21 +194,25 @@ def main() -> int:
     from ebcc_tpu_torch.ops import dwt
     from ebcc_tpu_torch.ops import fused_eval as fe
     from ebcc_tpu_torch.ops import idwt
+    from ebcc_tpu_torch.ops import idwt_probe as ip
     from ebcc_tpu_torch.ops import level0_counts as l0
     from ebcc_tpu_torch.runtime import cpu_decoder, cpu_encoder, cuda, native
+    from ebcc_tpu_torch.scripts import idwt_probe as probe_cli
 
     assert "jax" not in sys.modules and "ebcc_tpu" not in sys.modules
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     tag = f"[{card}]"
-    kernels = (l0.KERNEL, fe.KERNEL, idwt.KERNEL)
+    kernels = (l0.KERNEL, fe.KERNEL, idwt.KERNEL)  # the codec paths'
+    probe_kernels = tuple(ip.KERNELS.values())
+    all_kernels = kernels + probe_kernels
 
     def reset_counts():
-        for k in kernels:
+        for k in all_kernels:
             k.launches = 0
 
     def read_counts():
-        return {k.name: k.launches for k in kernels}
+        return {k.name: k.launches for k in all_kernels}
 
     phase("build")
     t0 = time.perf_counter()
@@ -211,11 +220,14 @@ def main() -> int:
     print(f"native host runtime: {time.perf_counter() - t0:.1f} s "
           f"({native.build_library()})")
     t0 = time.perf_counter()
-    cuda.build_all(kernels)
-    for k in kernels:
-        print(f"{k.name}: {k.build_seconds:.1f} s")
-    print(f"all three kernels, built together: "
-          f"{time.perf_counter() - t0:.1f} s")
+    cuda.build_all(all_kernels)
+    libraries = {}
+    for k in all_kernels:
+        libraries.setdefault(k.library, k)
+    for lib, k in libraries.items():
+        print(f"{lib}: {k.build_seconds:.1f} s")
+    print(f"all {len(all_kernels)} kernels ({len(libraries)} libraries), "
+          f"built together: {time.perf_counter() - t0:.1f} s")
 
     data = bench_frames(N_FRAMES)
     eb = dataprep.upsample_3t_2s(synthetic_spread())[:N_FRAMES]
@@ -351,6 +363,7 @@ def main() -> int:
                     codec.resid.levels),
                    ((1, 768, 1472), 1), ((1, 768, 1472), 5)]
     idwt_err = 0.0
+    idwt_bounds = {}
     rng = np.random.default_rng(2)
     for shape, lv in idwt_shapes:
         x = torch.from_numpy(rng.normal(0, 100, shape).astype(
@@ -368,7 +381,90 @@ def main() -> int:
         times[("idwt", f"{shape} L={lv}")] = (
             cuda_ms(lambda: dwt.idwt2d_multi(x, lv)),
             cuda_ms(lambda: dwt.idwt2d_multi_ref(x, lv), 3))
+        idwt_bounds[f"{shape} L={lv}"] = bound(8 * x.numel(),
+                                               lifting_ops(*shape, lv))
         del x, out, ref
+
+    phase(f"idwt probes vs plain torch at [1, 768, 1472] and [{BATCH}, 768, "
+          "1472] (expect bit equality)")
+    probe_err = dict.fromkeys(ip.PLAIN, 0.0)
+    probe_times = {}
+    for b in (1, BATCH):
+        x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (b, 768, 1472)).astype(np.float32)).to(dev)
+        parity = torch.tensor([1.0, -1.0], device=dev)
+        rows_pm, cols_pm = parity.repeat(384)[:, None], parity.repeat(736)
+        half = torch.tensor(0.5, device=dev)
+        # the single PyTorch call that may give the same bits, timed as the
+        # library call where it does (k0's add contracts to an fma in
+        # PyTorch's CUDA build)
+        one_call = {
+            "probe_elementwise": ("torch.add(0.5, x, alpha=1.0001)",
+                                  lambda: torch.add(half, x, alpha=ip.SCALE)),
+            "probe_row_interleave": ("torch.add(x, +-1 by row)",
+                                     lambda: torch.add(x, rows_pm)),
+            "probe_row_pairs": ("torch.add(x, +-1 by row)",
+                                lambda: torch.add(x, rows_pm)),
+            "probe_lane_interleave": ("torch.add(x, +-1 by column)",
+                                      lambda: torch.add(x, cols_pm)),
+            "probe_transpose": ("torch.mul(x, 1.0001)",
+                                lambda: torch.mul(x, ip.SCALE))}
+        for name, plain in ip.PLAIN.items():
+            out, ref = ip.probe(name, x), plain(x)
+            ndiff = int((out != ref).sum())
+            probe_err[name] = max(probe_err[name],
+                                  float((out - ref).abs().max()))
+            call, fn = one_call[name]
+            same = torch.equal(fn(), ref)
+            print(f"{name} {tuple(x.shape)}: {ndiff} of {out.numel()} "
+                  f"elements differ; {call} gives the same bits: {same}")
+            if ndiff:
+                raise AssertionError(f"{name} {tuple(x.shape)}: differs "
+                                     "from its plain version")
+            ops = 2 if name == "probe_elementwise" else 1
+            # a B=1 call is shorter than its host dispatch: the profiler's
+            # device time of one call is given beside the events' mean
+            traced, _ = kernel_times(lambda: ip.probe(name, x))
+            probe_times[(name, b)] = (
+                cuda_ms(lambda: ip.probe(name, x), 20),
+                cuda_ms(lambda: plain(x), 3),
+                cuda_ms(fn, 20) if same else None, call if same else None,
+                bound(8 * x.numel(), ops * x.numel()),
+                sum(us for us, _ in traced.values()) / 1e3)
+            ms, plain_ms, lib_ms, _, (bms, by), dev_ms = probe_times[(name, b)]
+            lib_txt = f"{lib_ms:.4f} ms" if same else "none"
+            print(f"  kernel {ms:.4f} ms (device time of one call "
+                  f"{dev_ms:.4f} ms: {sorted(traced)}), plain torch "
+                  f"{plain_ms:.4f} ms, one PyTorch call {lib_txt}, bound "
+                  f"{bms:.4f} ms ({by}{', L2-resident' if b == 1 else ''}) "
+                  f"{tag}")
+            del out, ref
+        del x
+    hp, wp, lv = codec.base.hp, codec.base.wp, codec.base.levels
+    area = BATCH * sum((hp >> i) * (wp >> i) for i in range(lv))
+    # the row pass against the probes of its shuffle, as achieved GB/s of
+    # each function's bytes (read once, written once) at B=16
+    us_rows, n_rows = k1_passes.get("eval_lift_rows", (0.0, 0))
+    gbs = {"eval_lift_rows": (f"{8 * area / us_rows * 1e-3:.0f}" if us_rows
+                              else "not measured")}
+    for n in ("probe_lane_interleave", "probe_transpose",
+              "probe_row_interleave", "probe_elementwise"):
+        ms = probe_times[(n, BATCH)][0]
+        gbs[n] = f"{8 * BATCH * 768 * 1472 / ms * 1e-6:.0f}"
+    print(f"achieved GB/s at B={BATCH}: {gbs} (eval_lift_rows: {n_rows} "
+          f"launches over {8 * area / 1e6:.1f} MB) {tag}")
+
+    phase("probe path: python -m ebcc_tpu_torch.scripts.idwt_probe "
+          f"(B = {probe_cli.BATCHES})")
+    reset_counts()
+    rc = probe_cli.main([])
+    launches_probe = read_counts()
+    print("launches in the probe path:", launches_probe)
+    if rc:
+        raise AssertionError("a probe differs from its plain version")
+    if min(launches_probe[k.name] for k in probe_kernels + (idwt.KERNEL,)) \
+            == 0:
+        raise AssertionError("a kernel of the probe path never launched")
 
     phase("main path: compress + decompress on cuda "
           f"({N_FRAMES} frames {H}x{W}, MAX_ERROR {ERROR})")
@@ -382,7 +478,7 @@ def main() -> int:
     t_dec_cold = time.perf_counter() - t0
     launches_max = read_counts()
     print("launches in the MAX_ERROR path:", launches_max)
-    if min(launches_max.values()) == 0:
+    if min(launches_max[k.name] for k in kernels) == 0:
         raise AssertionError("a kernel of the main path never launched")
     if rec.shape != data.shape or not np.isfinite(rec).all():
         raise AssertionError(f"bad reconstruction {rec.shape}")
@@ -469,7 +565,7 @@ def main() -> int:
     t_dec_pw_cold = time.perf_counter() - t0
     launches_pw = read_counts()
     print("launches in the pointwise path:", launches_pw)
-    if min(launches_pw.values()) == 0:
+    if min(launches_pw[k.name] for k in kernels) == 0:
         raise AssertionError("a kernel of the pointwise path never launched")
     if rec_pw.shape != data.shape or not np.isfinite(rec_pw).all():
         raise AssertionError(f"bad reconstruction {rec_pw.shape}")
@@ -591,8 +687,6 @@ def main() -> int:
     for (kname, var), (ms, plain) in times.items():
         print(f"{kname} {var}: kernel {ms:.3f} ms, plain torch {plain:.3f} "
               f"ms {tag}")
-    hp, wp, lv = codec.base.hp, codec.base.wp, codec.base.levels
-    area = BATCH * sum((hp >> i) * (wp >> i) for i in range(lv))
     bytes_per_pass = {"compose": 8 * BATCH * hp * wp,
                       "eval_lift_cols": 8 * area, "eval_lift_rows": 8 * area,
                       "tail_reduce": 8 * BATCH * H * W}
@@ -639,6 +733,26 @@ def main() -> int:
                                 ("idwt", idwt_bound, times[idwt_key][0])):
         print(f"{name}: bound {ms:.4f} ms ({by}), kernel {kms:.4f} ms, "
               f"{100 * ms / kms:.1f}% of the bound {tag}")
+    # every other timed variant's bound, on the same count: a masked
+    # candidate moves what a trunc one does; the resid tail also reads the
+    # base reconstruction over the valid points; K2's histograms count
+    # msb and smax[1] of the layer
+    def layer_bound(kname, layer):
+        g = codec.base if layer == "base" else codec.resid
+        n = BATCH * g.hp * g.wp
+        if kname == "K2":
+            return bound(4 * (n + n // 4) + 4 * BATCH * g.spec.nchunks *
+                         g.spec.nplanes * 3, 2 * (n + n // 4))
+        fields = 1 + (layer == "resid") + (kname == "K1p")
+        return bound(4 * n + 4 * fields * n_v + 8 * BATCH,
+                     10 * n + lifting_ops(BATCH, g.hp, g.wp, g.levels) +
+                     8 * n_v)
+
+    for (kname, var), (ms, _) in times.items():
+        bms, by = (idwt_bounds[var] if kname == "idwt" else
+                   layer_bound(kname, var.split("/")[0]))
+        print(f"bound of {kname} {var}: {bms:.4f} ms ({by}), kernel "
+              f"{ms:.4f} ms, {100 * bms / ms:.1f}% of the bound {tag}")
     print(f"device-only recon_packed (MAX_ERROR blob) {recon_ms:.3f} ms")
 
     def entry(name, source, replaces, err, key, bnd):
@@ -647,9 +761,36 @@ def main() -> int:
                 "replaces": replaces,
                 "launches": launches_pw[name],
                 "launches_max_error_path": launches_max[name],
+                "launches_probe_path": launches_probe[name],
                 "max_abs_err": err, "ms": times[key][0],
                 "plain_ms": times[key][1], "bound_ms": bnd[0],
                 "bound_by": bnd[1], "library_ms": None}
+
+    probe_replaces = {
+        "probe_elementwise": "scripts/pallas_idwt_probe.py:87",
+        "probe_row_interleave": "scripts/pallas_idwt_probe.py:90",
+        "probe_lane_interleave": "scripts/pallas_idwt_probe.py:97",
+        "probe_transpose": "scripts/pallas_idwt_probe.py:104",
+        "probe_row_pairs": "scripts/pallas_idwt_probe2.py:78"}
+
+    def probe_entry(name):
+        ms, plain_ms, lib_ms, lib_call, (bms, by), dev_ms = probe_times[
+            (name, BATCH)]
+        b1 = probe_times[(name, 1)]
+        return {"name": name, "route": "cuda",
+                "source": "ebcc_tpu_torch/csrc/idwt_probe.cu",
+                "replaces": probe_replaces[name],
+                "launches": launches_probe[name],
+                "launches_max_error_path": launches_max[name],
+                "launches_pointwise_path": launches_pw[name],
+                "max_abs_err": probe_err[name], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                "library_ms": lib_ms, "library_call": lib_call,
+                "device_ms": dev_ms, "shape": [BATCH, 768, 1472],
+                "b1_l2_resident": {"ms": b1[0], "plain_ms": b1[1],
+                                   "library_ms": b1[2],
+                                   "bound_ms": b1[4][0],
+                                   "device_ms": b1[5]}}
 
     record = {"kernels": [
         entry("level0_counts", "level0_counts.cu",
@@ -661,7 +802,7 @@ def main() -> int:
         dict(entry("idwt", "idwt.cu", "scripts/pallas_idwt_probe2.py:106",
                    idwt_err, idwt_key, idwt_bound),
              also_replaces="scripts/pallas_idwt_probe.py:122"),
-    ]}
+    ] + [probe_entry(name) for name in ip.PLAIN]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,13 +1,14 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-Each kernel is one CUDA C++ source ``csrc/<name>.cu`` with a plain C
-interface, plus the ``csrc/*.cuh`` headers it includes.  On first use it is
-compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+Each kernel is one C entry of a CUDA C++ source ``csrc/<library>.cu`` with a
+plain C interface, plus the ``csrc/*.cuh`` headers it includes; several
+kernels may share one library.  On first use the library is compiled with
+``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``ebcc_tpu_torch/build/`` (keyed on a hash of the source, every header it
 includes, found from its ``#include "..."`` lines, and the flags) and loaded
-with ctypes.  Every C entry launches on the
-stream it is given, allocates nothing and returns ``cudaGetLastError()``;
-:meth:`Kernel.launch` raises when that is not ``cudaSuccess``.
+with ctypes.  Every C entry launches on the stream it is given, allocates
+nothing and returns ``cudaGetLastError()``; :meth:`Kernel.launch` raises
+when that is not ``cudaSuccess``.
 """
 
 from __future__ import annotations
@@ -56,8 +57,9 @@ def included_sources(path: str) -> list[str]:
 
 
 class Kernel:
-    """One CUDA kernel library, built from ``csrc/<name>.cu``: its lazily
-    built library and its launch count.
+    """One C entry of a CUDA kernel library built from ``csrc/<library>.cu``
+    (``library`` defaults to ``name``): its lazily built library and its
+    launch count.
 
     ``sources``: the ``.cu`` file first, then every header it includes; the
     build is keyed on all of them.  ``launches`` counts calls of
@@ -65,9 +67,11 @@ class Kernel:
     resets it to 0 to count one run.
     """
 
-    def __init__(self, name: str, entry: str, argtypes: list):
+    def __init__(self, name: str, entry: str, argtypes: list,
+                 library: str | None = None):
         self.name, self.entry, self.argtypes = name, entry, argtypes
-        self.source = os.path.join(build.CSRC_DIR, f"{name}.cu")
+        self.library = library or name
+        self.source = os.path.join(build.CSRC_DIR, f"{self.library}.cu")
         self.launches = 0
         self.build_seconds = None
         self._lib = None
@@ -82,11 +86,11 @@ class Kernel:
             key = build.source_key(self.sources, NVCC_FLAGS)
 
             def compile_into(tmp):
-                so = os.path.join(tmp, f"lib{self.name}.so")
+                so = os.path.join(tmp, f"lib{self.library}.so")
                 build.run([[nvcc(), *NVCC_FLAGS, "-o", so, self.source]])
                 return so
 
-            lib = ctypes.CDLL(build.cached_library(self.name, key,
+            lib = ctypes.CDLL(build.cached_library(self.library, key,
                                                    compile_into))
             fn = getattr(lib, self.entry)
             fn.argtypes = self.argtypes
@@ -111,9 +115,15 @@ class Kernel:
 
 def build_all(kernels) -> None:
     """Build (or load from the cache) every kernel's library, one ``nvcc``
-    per kernel, all started together."""
-    with ThreadPoolExecutor(max_workers=max(1, len(kernels))) as ex:
-        list(ex.map(Kernel.lib, kernels))
+    per library, all started together; then load the other entries of each
+    library from the cache."""
+    first = {}
+    for k in kernels:
+        first.setdefault(k.library, k)
+    with ThreadPoolExecutor(max_workers=max(1, len(first))) as ex:
+        list(ex.map(Kernel.lib, first.values()))
+    for k in kernels:
+        k.lib()
 
 
 def require_cuda_tensor(t: torch.Tensor, name: str, dtype, shape) -> None:

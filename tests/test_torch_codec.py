@@ -269,7 +269,8 @@ def test_imports_without_jax():
             "sys.modules['ebcc_tpu'] = None; import ebcc_tpu_torch; "
             "import ebcc_tpu_torch.runtime.cpu_encoder, "
             "ebcc_tpu_torch.runtime.cpu_decoder, ebcc_tpu_torch.models, "
-            "ebcc_tpu_torch.dataprep; "
+            "ebcc_tpu_torch.dataprep, ebcc_tpu_torch.ops.idwt_probe, "
+            "ebcc_tpu_torch.scripts.idwt_probe; "
             "assert 'jax.numpy' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 

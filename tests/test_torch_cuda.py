@@ -19,6 +19,7 @@ from ebcc_tpu_torch.ops import bitplane as bp
 from ebcc_tpu_torch.ops import dwt
 from ebcc_tpu_torch.ops import fused_eval as fe
 from ebcc_tpu_torch.ops import idwt
+from ebcc_tpu_torch.ops import idwt_probe as ip
 from ebcc_tpu_torch.ops import level0_counts as l0
 from ebcc_tpu_torch.runtime import cpu_decoder, cpu_encoder, native
 
@@ -141,6 +142,18 @@ def test_idwt_rejects_bad_tensors(card):
         idwt.idwt2d_multi_cuda(x.transpose(1, 2), 3)
     with pytest.raises(ValueError):  # odd level sub-shape
         idwt.idwt2d_multi_cuda(torch.zeros((1, 90, 160), device=card), 3)
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("name", list(ip.PLAIN))
+def test_idwt_probe_kernel_matches_plain(card, name, batch):
+    """Each probe kernel bit-equal to its plain version at [B, 768, 1472]."""
+    x = torch.from_numpy(np.random.default_rng(batch).standard_normal(
+        (batch, 768, 1472)).astype(np.float32)).to(card)
+    before = ip.KERNELS[name].launches
+    out = ip.probe(name, x)
+    assert ip.KERNELS[name].launches == before + 1
+    assert torch.equal(out, ip.PLAIN[name](x))
 
 
 def test_cuda_pointwise_compress_matches_cpu_and_native(card):
