@@ -130,8 +130,11 @@ def kernel_times(fn):
     return out, wall
 
 
-OURS_K = ("compose", "eval_lift_cols", "eval_lift_rows", "tail_reduce",
-          "idwt_lift_cols", "idwt_lift_rows", "level0_hist", "level0_finalize")
+K1_PASSES = ("eval_lift_cols", "eval_lift_rows", "eval_rows_tail")
+IDWT_PASSES = ("idwt_lift_cols", "idwt_lift_rows")
+OURS_K = K1_PASSES + IDWT_PASSES + ("eval_reset", "eval_compose_tail",
+                                    "idwt_copy", "level0_hist",
+                                    "level0_finalize")
 
 
 def print_profile(label, kernels, wall_us, tag):
@@ -159,6 +162,24 @@ def lifting_ops(batch, hp, wp, levels) -> int:
     steps of an add and an fma (3 operations) on n/2 samples each: 7n; a
     2-D level is a column and a row pass over its hh x ww region."""
     return batch * sum(14 * (hp >> i) * (wp >> i) for i in range(levels))
+
+
+def pass_bytes(batch, hp, wp, levels, h, w) -> dict:
+    """Bytes each lifting pass moves in one base evaluation with a scalar
+    target (K1) and in one inverse DWT, over all its launches, each element
+    it reads or writes counted once: K1's column passes read every
+    coefficient of their level's region (from ci or the workspace) and
+    write it back (rows < h at level 0); its row passes of levels > 0 read
+    and write their region in place; its level-0 row pass reads the
+    workspace rows < h and ref over the valid h x w points and writes
+    nothing.  idwt's passes read and write each level's region."""
+    cols = sum(4 * (hp >> i) * (wp >> i) + 4 * (h if i == 0 else hp >> i) *
+               (wp >> i) for i in range(levels))
+    area = sum(8 * (hp >> i) * (wp >> i) for i in range(levels))
+    return {"eval_lift_cols": batch * cols,
+            "eval_lift_rows": batch * (area - 8 * hp * wp),
+            "eval_rows_tail": batch * (4 * h * wp + 4 * h * w),
+            "idwt_lift_cols": batch * area, "idwt_lift_rows": batch * area}
 
 
 def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -312,7 +333,13 @@ def main() -> int:
                 mk, ck = fe.eval_stats(ci_, ref_, b, mode=mode, **a, **cand)
                 mr, cr = fe.eval_stats_ref(ci_, ref_, b, mode=mode, **a,
                                            **cand)
-                torch.testing.assert_close(mk, mr, rtol=1e-5, atol=1e-4)
+                if not (torch.equal(mk.view(torch.int32),
+                                    mr.view(torch.int32)) and
+                        torch.equal(ck, cr)):
+                    raise AssertionError(
+                        f"{label} {name} {mode} {cand}: maxd {mk.tolist()} "
+                        f"vs {mr.tolist()}, counts {ck.tolist()} vs "
+                        f"{cr.tolist()}: not bit-equal")
                 if not torch.equal(mk <= 0, mr <= 0):
                     raise AssertionError(f"{label} {name}: maxd <= 0 "
                                          "decision differs")
@@ -333,12 +360,12 @@ def main() -> int:
                     cuda_ms(lambda: fe.eval_stats_ref(ci_, ref_, b,
                                                       mode=mode, **a,
                                                       **cand), 3))
-        print(f"{n_cands} candidates, all decisions identical; largest maxd "
-              f"difference {k1_err!r}")
+        print(f"{n_cands} candidates, maxd bit-equal, counts equal, all "
+              f"decisions identical; largest maxd difference {k1_err!r}")
         return k1_err, n_cands
 
-    phase("K1 fused_eval vs plain torch, scalar targets (decisions "
-          "identical, maxd rtol=1e-5 atol=1e-4)")
+    phase("K1 fused_eval vs plain torch, scalar targets (maxd bits and "
+          "counts equal)")
     k1_err, _ = check_k1(layers, "K1")
     # per-pass device times of one base/trunc evaluation (profiler), to
     # read each pass's achieved bandwidth against the 3.35 TB/s of HBM:
@@ -351,8 +378,8 @@ def main() -> int:
         **a))
     del layers, a, ci_, ref_, ws
 
-    phase("K1p fused_eval vs plain torch, per-point target field "
-          "(decisions identical, maxd rtol=1e-5 atol=1e-4)")
+    phase("K1p fused_eval vs plain torch, per-point target field (maxd "
+          "bits and counts equal)")
     layers = make_layers(tgt_pw)
     k1p_err, _ = check_k1(layers, "K1p")
     del layers
@@ -381,6 +408,8 @@ def main() -> int:
         times[("idwt", f"{shape} L={lv}")] = (
             cuda_ms(lambda: dwt.idwt2d_multi(x, lv)),
             cuda_ms(lambda: dwt.idwt2d_multi_ref(x, lv), 3))
+        if (shape, lv) == idwt_shapes[0]:  # per-pass device times
+            idwt_passes, _ = kernel_times(lambda: dwt.idwt2d_multi(x, lv))
         idwt_bounds[f"{shape} L={lv}"] = bound(8 * x.numel(),
                                                lifting_ops(*shape, lv))
         del x, out, ref
@@ -441,18 +470,25 @@ def main() -> int:
             del out, ref
         del x
     hp, wp, lv = codec.base.hp, codec.base.wp, codec.base.levels
-    area = BATCH * sum((hp >> i) * (wp >> i) for i in range(lv))
-    # the row pass against the probes of its shuffle, as achieved GB/s of
-    # each function's bytes (read once, written once) at B=16
-    us_rows, n_rows = k1_passes.get("eval_lift_rows", (0.0, 0))
-    gbs = {"eval_lift_rows": (f"{8 * area / us_rows * 1e-3:.0f}" if us_rows
-                              else "not measured")}
-    for n in ("probe_lane_interleave", "probe_transpose",
-              "probe_row_interleave", "probe_elementwise"):
-        ms = probe_times[(n, BATCH)][0]
-        gbs[n] = f"{8 * BATCH * 768 * 1472 / ms * 1e-6:.0f}"
-    print(f"achieved GB/s at B={BATCH}: {gbs} (eval_lift_rows: {n_rows} "
-          f"launches over {8 * area / 1e6:.1f} MB) {tag}")
+    # each K1 pass (one base/trunc evaluation) and each idwt pass ([B, hp,
+    # wp] at the base levels) as achieved GB/s of its own bytes, beside the
+    # probes' ceilings for the same [B, 768, 1472] at B=16 (row shuffle k2,
+    # transpose sandwich k3, fma stream k0)
+    nbytes = pass_bytes(BATCH, hp, wp, lv, H, W)
+    passes = {**{k: k1_passes.get(k, (0.0, 0)) for k in K1_PASSES},
+              **{k: idwt_passes.get(k, (0.0, 0)) for k in IDWT_PASSES}}
+    for name, (us, n) in passes.items():
+        gbs = f"{nbytes[name] / us * 1e-3:.0f} GB/s" if us else \
+            "not measured"
+        print(f"pass {name}: {us / 1e3:.4f} ms over {n} launches, "
+              f"{nbytes[name] / 1e6:.1f} MB, {gbs} {tag}")
+    other = sum(us for k, (us, _) in k1_passes.items() if k not in K1_PASSES)
+    print(f"K1 base/trunc wrapper's torch ops: {other / 1e3:.4f} ms {tag}")
+    probe_bytes = 8 * BATCH * 768 * 1472
+    ceilings = {n: f"{probe_bytes / probe_times[(n, BATCH)][0] * 1e-6:.0f} "
+                   "GB/s" for n in ("probe_lane_interleave",
+                                    "probe_transpose", "probe_elementwise")}
+    print(f"the probes' ceilings at B={BATCH}: {ceilings} {tag}")
 
     phase("probe path: python -m ebcc_tpu_torch.scripts.idwt_probe "
           f"(B = {probe_cli.BATCHES})")
@@ -687,17 +723,6 @@ def main() -> int:
     for (kname, var), (ms, plain) in times.items():
         print(f"{kname} {var}: kernel {ms:.3f} ms, plain torch {plain:.3f} "
               f"ms {tag}")
-    bytes_per_pass = {"compose": 8 * BATCH * hp * wp,
-                      "eval_lift_cols": 8 * area, "eval_lift_rows": 8 * area,
-                      "tail_reduce": 8 * BATCH * H * W}
-    for name, nbytes in bytes_per_pass.items():
-        us, n = k1_passes.get(name, (0.0, 0))
-        gbs = f"{nbytes / us * 1e-3:.0f} GB/s" if us else "not measured"
-        print(f"K1 base/trunc pass {name}: {us / 1e3:.4f} ms over {n} "
-              f"launches, {nbytes / 1e6:.1f} MB, {gbs} {tag}")
-    other = sum(us for k, (us, _) in k1_passes.items()
-                if k not in bytes_per_pass)
-    print(f"K1 base/trunc wrapper's torch ops: {other / 1e3:.4f} ms {tag}")
     print_profile("device-only MAX_ERROR encode", *kernel_times(
         lambda: codec.encode_error_bounded_hostq(u_dev, mn_d, mx_d, tgt,
                                                  1e-6)), tag)

@@ -12,10 +12,10 @@
 //                              access pattern), +1 on even rows, -1 on odd
 //   probe_row_pairs        q1  the (H/2, 2, W) form: one thread reads and
 //                              writes both rows of a pair
-//   probe_lane_interleave  k2  the row pass's shuffle without its lifting:
-//                              whole rows staged in shared memory as
-//                              [even | odd] halves, +-1, interleaved on the
-//                              store as lifting.cuh's lift_rows_block does
+//   probe_lane_interleave  k2  a row shuffle without lifting: whole rows
+//                              staged in shared memory as [even | odd]
+//                              halves, +-1, interleaved on a scalar store
+//                              with a division and modulo per element
 //   probe_transpose        k3  x -> a global [B, W, H] workspace (the TPU
 //                              kernel's VMEM (WP, HP) scratch) -> x * 1.0001,
 //                              two tiled shared-memory transposes
@@ -187,7 +187,7 @@ int ebcc_probe_row_pairs(int device, const float* x, float* out, int B,
 }
 
 // out[..., c] = x[..., c] + 1 on even columns c, - 1 on odd columns;
-// W <= 24576 (one row in lift_rows_block's kRowSmem)
+// W <= 24576 (one row in lifting.cuh's kRowSmem)
 int ebcc_probe_lane_interleave(int device, const float* x, float* out,
                                int B, int H, int W, cudaStream_t stream) {
   cudaError_t e = check_shape(device, B, H, W);

@@ -6,19 +6,37 @@
 // One 2-D synthesis level of the top-left hh x ww region of every
 // [hp, wp] frame is a column pass then a row pass (dwt.h:218-224):
 //   lift_cols_block: a block lifts a strip of kColStrip columns of the
-//                    full height hh in shared memory (hh <= 1816);
-//   lift_rows_block: a block lifts a few whole rows in shared memory
-//                    (ww <= 24576).
-// They are the bodies of the passes; each including source wraps them in
-// __global__ kernels of its own names (fused_eval.cu: eval_lift_cols /
-// eval_lift_rows, idwt.cu: idwt_lift_cols / idwt_lift_rows), so a profile
-// tells the two libraries' passes apart, and hands those to
-// inverse_levels.
+//                    full height hh in shared memory (hh <= 1816).  It
+//                    takes each coefficient from a loader (raw 32-bit
+//                    loads first, then, for fused_eval, the compose in
+//                    shared memory): the top-left
+//                    quadrant of every level but the deepest is what the
+//                    level below left in the destination; every other
+//                    coefficient is new at this level, and the loader
+//                    reads it (idwt) or composes it (fused_eval), so each
+//                    is produced exactly once, on load.
+//   lift_rows_block: a block stages a few whole rows in shared memory
+//                    (ww <= 24576) with one sync; then each thread lifts
+//                    runs of kRun (s, d) pairs in registers from a window
+//                    with a two-pair halo on each side (recomputed, so no
+//                    sync between the lifting steps), and hands the kRun
+//                    interleaved output pairs to an epilogue: a store, or
+//                    fused_eval's tail.  In the vector form (n2 % 4 == 0,
+//                    16-byte aligned rows) a run is one float4 of s and
+//                    one of d, its halo comes from the neighbouring lanes
+//                    by shuffle, and the interleaved store is two float4.
+// Neither pass divides per element: rows and runs are walked by strides.
+// Each including source wraps them in __global__ kernels of its own names
+// (fused_eval.cu: eval_lift_cols / eval_lift_rows / eval_rows_tail,
+// idwt.cu: idwt_lift_cols / idwt_lift_rows), so a profile tells the two
+// libraries' passes apart.
 //
 // Arithmetic is the native codec's, site by site (ebcc_cpu_decoder.cc:
 // 36-117): each lifting step is __fmaf_rn of the float32 sum and division
-// by XI is a multiply by its f32 reciprocal.  Build with -fmad=false so
-// nvcc contracts nothing else.
+// by XI is a multiply by its f32 reciprocal; the boundary rules are the
+// reference's (the GAMMA step's right neighbour mirrors to n2 - 2, the
+// ALPHA step's clamps to n2 - 1).  Build with -fmad=false so nvcc
+// contracts nothing else.
 
 #pragma once
 
@@ -34,23 +52,42 @@ constexpr float DELTA = 0.44355068522f;
 constexpr float XI = 1.149604398f;
 constexpr float RECIP_XI = (float)(1.0 / (double)XI);
 
-constexpr int kColStrip = 32;            // columns per column-pass block
-constexpr int kColRows = 8;              // thread rows per column-pass block
+// columns per column-pass block (64 B of a row: two full sectors) and its
+// thread rows; the strip of a 768-row level 0 takes 48 KB of shared
+// memory, so 4 blocks share an SM and overlap their load and lift phases
+constexpr int kColStrip = 16;
+constexpr int kColRows = 16;
 constexpr int kThreads = 256;
 constexpr int kRowSmem = 96 * 1024;      // row pass: rows per block fill this
 constexpr int kMaxSmem = 227 * 1024;     // opt-in limit of one block (H100)
+constexpr int kRun = 4;                  // (s, d) pairs a row-pass thread lifts
+constexpr unsigned kFull = 0xffffffffu;
 
-// inverse lifting along columns of the top-left hh x ww region: block
-// (kColStrip, kColRows) owns columns [c0, c0 + kColStrip) of one frame
-__device__ __forceinline__ void lift_cols_block(float* __restrict__ work,
-                                                int hp, int wp, int hh,
-                                                int ww) {
+// ---------------------------------------------------------------------------
+// column pass
+
+// Inverse lifting along the columns of the top-left hh x ww region of one
+// frame: block (kColStrip, kColRows) owns columns [c0, c0 + kColStrip).
+// For row r of this thread's column c < ww, load.raw(r) is one 32-bit
+// load and nothing else, so the first loop keeps many loads in flight;
+// where Load::kCooks, load.cook(r, bits) then turns the bits into the
+// coefficient, in shared memory, by the thread that loaded them (else the
+// bits are the f32 coefficient).  Rows [0, hstore) of the result go to dst
+// (the frame's base).
+template <class Load>
+__device__ __forceinline__ void lift_cols_block(Load& load, float* dst,
+                                                int wp, int hh, int ww,
+                                                int hstore) {
   extern __shared__ float sm[];  // [hh][kColStrip]
+  int* smi = reinterpret_cast<int*>(sm);
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int c = blockIdx.x * kColStrip + tx;
-  float* x = work + (int64_t)blockIdx.y * hp * wp;
+#pragma unroll 8
   for (int r = ty; r < hh; r += kColRows)
-    sm[r * kColStrip + tx] = c < ww ? x[(int64_t)r * wp + c] : 0.0f;
+    smi[r * kColStrip + tx] = c < ww ? load.raw(r) : 0;
+  if (Load::kCooks && c < ww)
+    for (int r = ty; r < hh; r += kColRows)
+      sm[r * kColStrip + tx] = load.cook(r, smi[r * kColStrip + tx]);
   __syncthreads();
   const int n2 = hh / 2;
   float* s = sm;                       // rows [0, n2)
@@ -75,95 +112,196 @@ __device__ __forceinline__ void lift_cols_block(float* __restrict__ work,
     D(i) = __fmaf_rn(-ALPHA, S(i) + S(i + 1 < n2 ? i + 1 : n2 - 1), D(i));
   __syncthreads();
   if (c < ww)
-    for (int r = ty; r < hh; r += kColRows)
-      x[(int64_t)r * wp + c] = (r & 1) ? D(r >> 1) : S(r >> 1);
+    for (int r = ty; r < hstore; r += kColRows)
+      dst[(int64_t)r * wp + c] = (r & 1) ? D(r >> 1) : S(r >> 1);
 #undef S
 #undef D
 }
 
-// inverse lifting along rows: a block owns rows [r0, r0 + rows) of the
-// top-left hh x ww region of one frame
-__device__ __forceinline__ void lift_rows_block(float* __restrict__ work,
-                                                int hp, int wp, int hh,
-                                                int ww, int rows) {
-  extern __shared__ float sm[];  // [rows][ww]
-  const int r0 = blockIdx.x * rows;
-  const int nr = min(rows, hh - r0);
-  float* x = work + (int64_t)blockIdx.y * hp * wp + (int64_t)r0 * wp;
-  for (int k = threadIdx.x; k < nr * ww; k += kThreads) {
-    const int rr = k / ww, c = k - rr * ww;
-    sm[k] = x[(int64_t)rr * wp + c];
+// ---------------------------------------------------------------------------
+// row pass
+
+// rows per row-pass block at width ww: 8, halved until they fit kRowSmem;
+// the block is (kThreads / rows, rows) threads
+__host__ inline int row_block_rows(int ww) {
+  int rows = 8;
+  while (rows > 1 && rows * ww * (int)sizeof(float) > kRowSmem) rows >>= 1;
+  return rows;
+}
+
+__device__ __forceinline__ int clamp_pair(int i, int n2) {
+  return min(max(i, 0), n2 - 1);
+}
+
+// One run: the kRun output pairs [i0, i0 + kRun) of a row of n2 pairs from
+// the window sw[k] = s[i0 + k - 1] (k < kRun + 3) and dw[k] = d[i0 + k - 2]
+// (k < kRun + 4) of the row's [s | d] halves.  Entries past the row are
+// don't-cares: an output pair < n2 never depends on them, because each
+// step takes the boundary rule where the reference does.  Writes
+// o[2j] = even sample, o[2j + 1] = odd sample of pair i0 + j.
+__device__ __forceinline__ void lift_run(float (&sw)[kRun + 3],
+                                         float (&dw)[kRun + 4], int i0,
+                                         int n2, float (&o)[2 * kRun]) {
+#pragma unroll
+  for (int k = 0; k < kRun + 3; ++k) sw[k] = sw[k] * RECIP_XI;
+#pragma unroll
+  for (int k = 0; k < kRun + 4; ++k) dw[k] = dw[k] * XI;
+  // s at pair i0 + k - 1: d[i - 1] reflects to d[1] at i == 0
+#pragma unroll
+  for (int k = 0; k < kRun + 3; ++k) {
+    float prev = dw[k];
+    if (k == 1 && i0 == 0) prev = dw[3];
+    sw[k] = __fmaf_rn(-DELTA, dw[k + 1] + prev, sw[k]);
   }
-  __syncthreads();
-  const int n2 = ww / 2;
-  const int m = nr * n2;
-#define ROW(k) float* s = sm + ((k) / n2) * ww; float* d = s + n2; \
-               const int i = (k) % n2;
-  for (int k = threadIdx.x; k < m; k += kThreads) {
-    ROW(k)
-    s[i] = s[i] * RECIP_XI;
-    d[i] = d[i] * XI;
+  // d at pair i0 + k - 2: s[i + 1] mirrors to s[n2 - 2] at i == n2 - 1
+#pragma unroll
+  for (int k = 1; k < kRun + 3; ++k) {
+    float next = sw[k];
+    if (k >= 2 && i0 + k - 1 >= n2) next = sw[k >= 2 ? k - 2 : 0];
+    dw[k] = __fmaf_rn(-GAMMA, sw[k - 1] + next, dw[k]);
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < m; k += kThreads) {
-    ROW(k)
-    s[i] = __fmaf_rn(-DELTA, d[i] + d[i == 0 ? 1 : i - 1], s[i]);
+  // s at pair i0 + k - 1: d[i - 1] reflects to d[1] at i == 0
+#pragma unroll
+  for (int k = 1; k < kRun + 2; ++k) {
+    float prev = dw[k];
+    if (k == 1 && i0 == 0) prev = dw[3];
+    sw[k] = __fmaf_rn(-BETA, dw[k + 1] + prev, sw[k]);
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < m; k += kThreads) {
-    ROW(k)
-    d[i] = __fmaf_rn(-GAMMA, s[i] + s[i + 1 < n2 ? i + 1 : n2 - 2], d[i]);
+  // d at pair i0 + k - 2: s[i + 1] clamps to s[n2 - 1] at i == n2 - 1
+#pragma unroll
+  for (int k = 2; k < kRun + 2; ++k) {
+    const float next = i0 + k - 1 < n2 ? sw[k] : sw[k - 1];
+    dw[k] = __fmaf_rn(-ALPHA, sw[k - 1] + next, dw[k]);
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < m; k += kThreads) {
-    ROW(k)
-    s[i] = __fmaf_rn(-BETA, d[i] + d[i == 0 ? 1 : i - 1], s[i]);
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < m; k += kThreads) {
-    ROW(k)
-    d[i] = __fmaf_rn(-ALPHA, s[i] + s[i + 1 < n2 ? i + 1 : n2 - 1], d[i]);
-  }
-  __syncthreads();
-#undef ROW
-  for (int k = threadIdx.x; k < nr * ww; k += kThreads) {
-    const int rr = k / ww, c = k - rr * ww;
-    const float* s = sm + rr * ww;
-    x[(int64_t)rr * wp + c] = (c & 1) ? s[n2 + (c >> 1)] : s[c >> 1];
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) {
+    o[2 * j] = sw[j + 1];
+    o[2 * j + 1] = dw[j + 2];
   }
 }
 
-// the __global__ wrappers of lift_cols_block and lift_rows_block
-using LiftCols = void (*)(float*, int, int, int, int);
-using LiftRows = void (*)(float*, int, int, int, int, int);
-
-// the inverse levels L-1..0 of B frames [hp, wp] in place on `stream`:
-// per level a column pass and a row pass.  Returns the first launch error.
-cudaError_t inverse_levels(LiftCols lift_cols, LiftRows lift_rows,
-                           float* work, int B, int hp, int wp, int levels,
-                           cudaStream_t stream) {
-  cudaError_t e;
-  for (int i = levels - 1; i >= 0; --i) {
-    const int hh = hp >> i, ww = wp >> i;
-    const int col_bytes = hh * kColStrip * (int)sizeof(float);
-    const int rows = min(64, kRowSmem / (ww * (int)sizeof(float)));
-    if (col_bytes > kMaxSmem || rows < 1) return cudaErrorInvalidValue;
-    cudaFuncSetAttribute(lift_cols,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         col_bytes);
-    lift_cols<<<dim3((ww + kColStrip - 1) / kColStrip, B),
-                dim3(kColStrip, kColRows), col_bytes, stream>>>(
-        work, hp, wp, hh, ww);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    const int row_bytes = rows * ww * (int)sizeof(float);
-    cudaFuncSetAttribute(lift_rows,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         row_bytes);
-    lift_rows<<<dim3((hh + rows - 1) / rows, B), kThreads, row_bytes,
-                stream>>>(work, hp, wp, hh, ww, rows);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+// Inverse lifting along rows: block (kThreads / rows, rows) owns rows
+// [r0, r0 + rows) of one frame (src: the frame's base), of which rows
+// < nrows are lifted; each lifted row's pairs [0, npairs) go to
+// out(row, i0, o) one run at a time (i0 a multiple of kRun; o as lift_run
+// writes it; pairs past n2 are the epilogue's to skip).  kVec: n2 % 4 ==
+// 0, wp % 4 == 0 and src 16-byte aligned.
+template <bool kVec, class Out>
+__device__ __forceinline__ void lift_rows_block(const float* src, int wp,
+                                                int ww, int nrows,
+                                                int npairs, Out& out) {
+  extern __shared__ float sm[];  // [rows][ww]
+  const int tx = threadIdx.x, ty = threadIdx.y, tw = blockDim.x;
+  const int row = blockIdx.x * blockDim.y + ty;
+  const int n2 = ww / 2;
+  float* s = sm + ty * ww;
+  const float* d = s + n2;
+  const bool live = row < nrows;  // uniform across each warp (tw >= 32)
+  if (live) {
+    const float* g = src + (int64_t)row * wp;
+    if (kVec) {
+      for (int k = tx; k < ww / 4; k += tw)
+        reinterpret_cast<float4*>(s)[k] =
+            reinterpret_cast<const float4*>(g)[k];
+    } else {
+      for (int k = tx; k < ww; k += tw) s[k] = g[k];
+    }
   }
-  return cudaSuccess;
+  __syncthreads();
+  if (!live) return;
+  const int lane = tx & 31;
+  for (int base = 0; base < npairs; base += kRun * tw) {
+    const int i0 = base + kRun * tx;
+    float sw[kRun + 3], dw[kRun + 4];
+    if (kVec) {
+      // own pairs as float4; the halo from the neighbouring lanes, and
+      // from shared memory at the warp's two ends
+      const int ic = min(i0, n2 - kRun);
+      const float4 sv = *reinterpret_cast<const float4*>(s + ic);
+      const float4 dv = *reinterpret_cast<const float4*>(d + ic);
+      sw[1] = sv.x; sw[2] = sv.y; sw[3] = sv.z; sw[4] = sv.w;
+      dw[2] = dv.x; dw[3] = dv.y; dw[4] = dv.z; dw[5] = dv.w;
+      sw[0] = __shfl_up_sync(kFull, sv.w, 1);
+      dw[0] = __shfl_up_sync(kFull, dv.z, 1);
+      dw[1] = __shfl_up_sync(kFull, dv.w, 1);
+      sw[5] = __shfl_down_sync(kFull, sv.x, 1);
+      sw[6] = __shfl_down_sync(kFull, sv.y, 1);
+      dw[6] = __shfl_down_sync(kFull, dv.x, 1);
+      dw[7] = __shfl_down_sync(kFull, dv.y, 1);
+      if (lane == 0) {
+        sw[0] = s[clamp_pair(i0 - 1, n2)];
+        dw[0] = d[clamp_pair(i0 - 2, n2)];
+        dw[1] = d[clamp_pair(i0 - 1, n2)];
+      } else if (lane == 31) {
+        sw[5] = s[clamp_pair(i0 + kRun, n2)];
+        sw[6] = s[clamp_pair(i0 + kRun + 1, n2)];
+        dw[6] = d[clamp_pair(i0 + kRun, n2)];
+        dw[7] = d[clamp_pair(i0 + kRun + 1, n2)];
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kRun + 3; ++k) sw[k] = s[clamp_pair(i0 + k - 1, n2)];
+#pragma unroll
+      for (int k = 0; k < kRun + 4; ++k) dw[k] = d[clamp_pair(i0 + k - 2, n2)];
+    }
+    float o[2 * kRun];
+    lift_run(sw, dw, i0, n2, o);
+    out.template run<kVec>(row, i0, o);
+  }
+}
+
+// row-pass epilogue of a level above the last: the interleaved pairs back
+// into the row, in place (dst: the frame's base)
+struct StoreRun {
+  float* dst;
+  int wp, n2;
+  template <bool kVec>
+  __device__ __forceinline__ void run(int row, int i0,
+                                      const float (&o)[2 * kRun]) const {
+    float* g = dst + (int64_t)row * wp + 2 * i0;
+    if (kVec) {
+      if (i0 < n2) {
+        reinterpret_cast<float4*>(g)[0] = make_float4(o[0], o[1], o[2], o[3]);
+        reinterpret_cast<float4*>(g)[1] = make_float4(o[4], o[5], o[6], o[7]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kRun; ++j)
+        if (i0 + j < n2) {
+          g[2 * j] = o[2 * j];
+          g[2 * j + 1] = o[2 * j + 1];
+        }
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// launch setup
+
+// Opt a kernel into `bytes` of dynamic shared memory (the most any of its
+// launches takes: kMaxSmem for a column pass, kRowSmem for a row pass,
+// which also has static shared memory), once per device; the attribute
+// only raises the ceiling, a launch's own size still sets its occupancy.
+template <class Kernel>
+cudaError_t allow_smem(Kernel* fn, int bytes, uint64_t& done) {
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = 1ull << (dev & 63);
+  if (done & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) done |= bit;
+  return e;
+}
+
+__host__ inline bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+// the vector form of the row pass at width ww (see lift_rows_block)
+__host__ inline bool row_vec(int ww, int wp, const void* p) {
+  return (ww / 2) % 4 == 0 && wp % 4 == 0 && aligned16(p);
 }
 
 }  // namespace

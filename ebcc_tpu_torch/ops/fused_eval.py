@@ -56,6 +56,25 @@ def _params(batch, device, b, js, jr, dropmask, dc, lo, hi, tgt):
     return iparams.contiguous(), fparams.contiguous()
 
 
+def level_weights(levels: int) -> np.ndarray:
+    """The subband weights the CUDA kernel divides by, by level and
+    quadrant: f32 [max(levels, 1), 4].  Row ``i`` holds the weights of the
+    (top-left, top-right, bottom-left, bottom-right) quadrants of level
+    ``i``'s ``(hp >> i) x (wp >> i)`` region: top-right, bottom-left and
+    bottom-right are subbands ``3i+1``, ``3i+2``, ``3i+3``; top-left is the
+    level below, except at the deepest level, where it is subband 0 (at
+    ``levels == 0`` the whole frame, in all four).  Painting these from
+    the deepest level up reproduces :func:`.weights.weight_array`."""
+    sw = weights.subband_weights(levels)
+    if levels == 0:
+        return np.full((1, 4), sw[0], np.float32)
+    out = np.zeros((levels, 4), np.float32)
+    for i in range(levels):
+        out[i, 1:] = sw[3 * i + 1:3 * i + 4]
+    out[levels - 1, 0] = sw[0]
+    return out
+
+
 def eval_stats_ref(ci, ref, b, *, kind: str, mode: str, levels: int,
                    nchunks: int, h: int, w: int, js=None, jr=None,
                    dropmask=None, dc=None, lo=None, hi=None, tgt=None,
@@ -143,12 +162,12 @@ def eval_stats(ci, ref, b, *, kind: str, mode: str, levels: int,
     cuda.require_cuda_tensor(workspace, "workspace", torch.float32, shape)
     iparams, fparams = _params(batch, dev, b, js, jr, dropmask, dc, lo, hi,
                                tgt)
-    peaks = np.ascontiguousarray(weights.subband_weights(levels))
+    wts = level_weights(levels)
     stats = torch.empty((batch, 2), dtype=torch.int32, device=dev)
     KERNEL.launch(dev, ci.data_ptr(), ref.data_ptr(),
                   None if base_rec is None else base_rec.data_ptr(),
                   None if tgt_field is None else tgt_field.data_ptr(),
-                  iparams.data_ptr(), fparams.data_ptr(), peaks.ctypes.data,
+                  iparams.data_ptr(), fparams.data_ptr(), wts.ctypes.data,
                   batch, hp, wp, levels, nchunks, h, w, _KINDS.index(kind),
                   _MODES.index(mode), workspace.data_ptr(), stats.data_ptr())
     key = stats[:, 0]

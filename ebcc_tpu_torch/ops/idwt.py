@@ -21,8 +21,9 @@ from ..runtime import cuda
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = cuda.Kernel("idwt", "ebcc_idwt", [_I, _P, _P, _I, _I, _I, _I, _P])
 
-# the lifting passes' shared-memory tiles: a 32-column strip of the full
-# height, and at least one whole row (csrc/lifting.cuh)
+# the lifting passes' shared-memory tiles (csrc/lifting.cuh): a column
+# strip of the full height (hp <= 1816 keeps even a 32-column f32 strip in
+# one block's 227 KB; the strips are 16 columns), and at least one row
 MAX_ROWS = 227 * 1024 // (32 * 4)
 MAX_COLS = 96 * 1024 // 4
 
@@ -40,10 +41,12 @@ def supported(hp: int, wp: int, levels: int) -> bool:
     return True
 
 
-def idwt2d_multi_cuda(x: torch.Tensor, levels: int) -> torch.Tensor:
+def idwt2d_multi_cuda(x: torch.Tensor, levels: int,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
     """L-level inverse DWT of a contiguous f32 CUDA tensor [B, hp, wp]
-    into a new tensor (the kernel copies ``x`` into it and lifts in
-    place)."""
+    into ``out`` (a new tensor when None; ``out`` may be ``x`` itself, and
+    then the transform runs in place).  The kernel reads each coefficient
+    of ``x`` once, at the level where it enters, and lifts in ``out``."""
     if x.dim() != 3:
         raise ValueError(f"idwt: expected [B, hp, wp], got {tuple(x.shape)}")
     batch, hp, wp = x.shape
@@ -51,7 +54,11 @@ def idwt2d_multi_cuda(x: torch.Tensor, levels: int) -> torch.Tensor:
         raise ValueError(f"idwt: unsupported geometry {hp}x{wp}, "
                          f"{levels} levels")
     cuda.require_cuda_tensor(x, "x", torch.float32, (batch, hp, wp))
-    out = torch.empty_like(x)
+    if out is None:
+        out = torch.empty_like(x)
+    cuda.require_cuda_tensor(out, "out", torch.float32, (batch, hp, wp))
+    if out.device != x.device:
+        raise ValueError("idwt: x and out must be on one device")
     KERNEL.launch(x.device, x.data_ptr(), out.data_ptr(), batch, hp, wp,
                   levels)
     return out

@@ -101,9 +101,59 @@ def test_eval_stats_kernel_matches_plain(card, pointwise):
                 mk, ck = fe.eval_stats(ci, ref, b, mode=mode, **a, **cand)
                 mr, cr = fe.eval_stats_ref(ci, ref, b, mode=mode, **a,
                                            **cand)
-                assert torch.equal(ck, cr)
-                assert torch.equal(mk <= 0, mr <= 0)
-                torch.testing.assert_close(mk, mr, rtol=1e-5, atol=1e-4)
+                _assert_same_stats((mk, ck), (mr, cr))
+
+
+def _assert_same_stats(ours, plain):
+    """Equal maxd bits and equal violation counts."""
+    (mk, ck), (mr, cr) = ours, plain
+    assert torch.equal(mk.view(torch.int32), mr.view(torch.int32)), (mk, mr)
+    assert torch.equal(ck, cr), (ck, cr)
+
+
+@pytest.mark.parametrize("target", ["scalar", "field"])
+@pytest.mark.parametrize("kind", ["base", "resid"])
+@pytest.mark.parametrize("levels,hp,wp,h,w", [(0, 33, 50, 30, 45),
+                                              (1, 64, 96, 60, 90),
+                                              (5, 96, 160, 90, 150)])
+def test_eval_stats_kernel_bit_equal_by_levels(card, levels, hp, wp, h, w,
+                                                kind, target):
+    """Kernel vs plain on random inputs at 0, 1 and 5 levels with a valid
+    region smaller than the frame (h < hp, w < wp): the one fused pass of
+    levels == 0, and the vector and scalar forms of the row pass (at 5
+    levels the two deepest rows have an n2 that is not a multiple of 4)."""
+    rng = np.random.default_rng(10 * levels + (kind == "resid"))
+    nb, nchunks = 3, 8
+    scale = 1 << (14 if kind == "base" else 8)
+    ci = rng.integers(-scale, scale, (nb, hp, wp)).astype(np.int32)
+    ci[:, ::3] //= 16
+    if kind == "base":
+        dc, lo, hi = 30000.0, 250.0, 290.0
+    else:
+        dc, lo, hi = 128.0, -0.5, 0.5
+    ref = lo + (hi - lo) * rng.random((nb, hp, wp))
+    base_rec = (rng.normal(0, 0.1, (nb, hp, wp)) if kind == "resid"
+                else None)
+
+    def dev(a, dtype=torch.float32):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(card, dtype)
+
+    tg = dict(tgt=0.02 if kind == "base" else 0.2) if target == "scalar" \
+        else dict(tgt_field=dev(rng.uniform(0.0, 0.05, (nb, hp, wp))))
+    a = dict(kind=kind, levels=levels, nchunks=nchunks, h=h, w=w, dc=dc,
+             lo=lo, hi=hi, base_rec=dev(base_rec), **tg)
+    ci_d, ref_d = dev(ci, torch.int32), dev(ref)
+    vec = torch.arange(nb, dtype=torch.int32, device=card)
+    cands = [("trunc", 0, dict(js=nchunks, jr=nchunks)),
+             ("trunc", 3, dict(js=3, jr=0)), ("trunc", 7, dict(js=8, jr=5)),
+             ("masked", 2, dict(dropmask=vec * 37 % (1 << nchunks))),
+             ("masked", 5, dict(dropmask=0b10110101))]
+    for mode, b0, cand in cands:
+        b = vec + b0
+        _assert_same_stats(
+            fe.eval_stats(ci_d, ref_d, b, mode=mode, **a, **cand),
+            fe.eval_stats_ref(ci_d, ref_d, b, mode=mode, **a, **cand))
 
 
 def test_eval_stats_rejects_bad_tensors(card):
@@ -120,18 +170,32 @@ def test_eval_stats_rejects_bad_tensors(card):
         fe.eval_stats(ci, ref.cpu(), b, mode="trunc", **a)
 
 
-@pytest.mark.parametrize("shape,levels", [((16, 768, 1472), 5),
-                                          ((16, 736, 1440), 3),
-                                          ((1, 768, 1472), 1),
-                                          ((1, 768, 1472), 5),
-                                          ((3, 96, 160), 3)])
+IDWT_CASES = [((16, 768, 1472), 5), ((16, 736, 1440), 3),
+              ((1, 768, 1472), 1), ((1, 768, 1472), 5), ((3, 96, 160), 3),
+              ((2, 64, 96), 0), ((2, 64, 96), 1),
+              ((1, 16, 24576), 2)]  # the widest row supported() takes
+
+
+@pytest.mark.parametrize("shape,levels", IDWT_CASES)
 def test_idwt_kernel_matches_plain(card, shape, levels):
     x = torch.from_numpy(np.random.default_rng(2).normal(
         0, 100, shape).astype(np.float32)).to(card)
+    x0 = x.clone()
     out = dwt.idwt2d_multi(x, levels)
-    ref = dwt.idwt2d_multi_ref(x, levels)
+    ref = dwt.idwt2d_multi_ref(x0, levels)
     assert torch.equal(out, ref)
-    assert torch.equal(x, x.clone())  # the input is left as it was
+    assert torch.equal(x, x0)  # the input is left as it was
+
+
+@pytest.mark.parametrize("shape,levels", IDWT_CASES)
+def test_idwt_kernel_in_place(card, shape, levels):
+    """out is x: the transform overwrites its input."""
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        0, 100, shape).astype(np.float32)).to(card)
+    ref = dwt.idwt2d_multi_ref(x, levels)
+    out = idwt.idwt2d_multi_cuda(x, levels, out=x)
+    assert out is x
+    assert torch.equal(x, ref)
 
 
 def test_idwt_rejects_bad_tensors(card):

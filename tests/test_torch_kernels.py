@@ -11,7 +11,9 @@ seeds, both packages fed identical arrays):
   tests/test_pallas_eval.py, for the four scalar-target variants and the
   four per-point target-field variants;
 * every kernel library's build key covers each header its source
-  includes, so a header edit rebuilds it.
+  includes, so a header edit rebuilds it;
+* the per-level quadrant weights the candidate-evaluation kernel divides
+  by, painted level by level, are the weight array of the plain version.
 
 tests/test_torch_cuda.py compares each CUDA kernel with its plain version
 on a card.
@@ -34,6 +36,7 @@ from ebcc_tpu_torch.ops import bitplane as bp
 from ebcc_tpu_torch.ops import fused_eval as fe
 from ebcc_tpu_torch.ops import idwt
 from ebcc_tpu_torch.ops import level0_counts as l0
+from ebcc_tpu_torch.ops import weights
 from ebcc_tpu_torch.runtime import build, cuda, native
 
 B, H, W = 2, 96, 160
@@ -105,6 +108,44 @@ def test_kernel_build_keyed_on_every_included_header(kernel, tmp_path):
                                    cuda.NVCC_FLAGS)
         assert new_key != key
         key = new_key
+
+
+@pytest.mark.parametrize("hp,wp,levels", [(768, 1472, 5), (736, 1440, 3),
+                                          (96, 160, 3), (64, 96, 1),
+                                          (64, 96, 0)])
+def test_level_weights_paint_the_weight_array(hp, wp, levels):
+    """The column passes divide each coefficient by its quadrant's weight
+    at the level where it is composed: painting ``level_weights`` quadrant
+    by quadrant from the deepest level up covers every coefficient exactly
+    once and gives ``weight_array`` bit for bit."""
+    lw = fe.level_weights(levels)
+    assert lw.dtype == np.float32 and lw.shape == (max(levels, 1), 4)
+    painted = np.zeros((hp, wp), np.float32)
+    times = np.zeros((hp, wp), np.int32)
+    for i in range(max(levels, 1) - 1, -1, -1):
+        hh, ww = hp >> i, wp >> i
+        h2, w2 = hh // 2, ww // 2
+        quads = [(slice(0, h2), slice(w2, ww)), (slice(h2, hh), slice(0, w2)),
+                 (slice(h2, hh), slice(w2, ww))]
+        if i == max(levels, 1) - 1:  # the deepest level composes all four
+            quads.insert(0, (slice(0, h2), slice(0, w2)))
+        for (rs, cs), wt in zip(quads, lw[i] if len(quads) == 4 else lw[i, 1:]):
+            painted[rs, cs] = wt
+            times[rs, cs] += 1
+    assert (times == 1).all()
+    want = weights.weight_array(hp, wp, levels)
+    np.testing.assert_array_equal(painted.view(np.uint32),
+                                  want.view(np.uint32))
+
+
+def test_idwt_wrapper_rejects_cpu_tensors():
+    """The CUDA wrapper takes CUDA tensors only (CPU tensors go through
+    ``dwt.idwt2d_multi`` to the plain version)."""
+    x = torch.zeros((1, 16, 32))
+    with pytest.raises(ValueError):
+        idwt.idwt2d_multi_cuda(x, 2)
+    with pytest.raises(ValueError):
+        idwt.idwt2d_multi_cuda(x, 2, out=x)
 
 
 def _make_layers(pointwise: bool):
