@@ -451,19 +451,33 @@ def main() -> int:
                 raise AssertionError(f"{name} {tuple(x.shape)}: differs "
                                      "from its plain version")
             ops = 2 if name == "probe_elementwise" else 1
-            # a B=1 call is shorter than its host dispatch: the profiler's
-            # device time of one call is given beside the events' mean
-            traced, _ = kernel_times(lambda: ip.probe(name, x))
+            # kernel and PyTorch call timed in turns (kernel, call, call,
+            # kernel), 20 warm calls a window, each the mean of its two
+            # windows; a B=1 call is shorter than its host dispatch, so the
+            # profiler's device time of one call is given beside the mean
+            def kern():
+                return ip.probe(name, x)
+            k_ms = [cuda_ms(kern, 20)]
+            lib_win = [cuda_ms(fn, 20), cuda_ms(fn, 20)] if same else []
+            k_ms.append(cuda_ms(kern, 20))
+            traced, _ = kernel_times(kern)
+            lib_traced = kernel_times(fn)[0] if same else {}
             probe_times[(name, b)] = (
-                cuda_ms(lambda: ip.probe(name, x), 20),
-                cuda_ms(lambda: plain(x), 3),
-                cuda_ms(fn, 20) if same else None, call if same else None,
+                sum(k_ms) / 2, cuda_ms(lambda: plain(x), 3),
+                sum(lib_win) / 2 if same else None, call if same else None,
                 bound(8 * x.numel(), ops * x.numel()),
-                sum(us for us, _ in traced.values()) / 1e3)
-            ms, plain_ms, lib_ms, _, (bms, by), dev_ms = probe_times[(name, b)]
-            lib_txt = f"{lib_ms:.4f} ms" if same else "none"
-            print(f"  kernel {ms:.4f} ms (device time of one call "
-                  f"{dev_ms:.4f} ms: {sorted(traced)}), plain torch "
+                sum(us for us, _ in traced.values()) / 1e3,
+                sum(us for us, _ in lib_traced.values()) / 1e3
+                if same else None)
+            ms, plain_ms, lib_ms, _, (bms, by), dev_ms, lib_dev_ms = \
+                probe_times[(name, b)]
+            lib_txt = (f"{lib_ms:.4f} ms (windows {lib_win[0]:.4f} "
+                       f"{lib_win[1]:.4f}; device time of one call "
+                       f"{lib_dev_ms:.4f} ms)" if same else "none")
+            print(f"  kernel {ms:.4f} ms (windows {k_ms[0]:.4f} "
+                  f"{k_ms[1]:.4f}), {8 * x.numel() / ms * 1e-6:.0f} "
+                  f"GB/s on {8 * x.numel() / 1e6:.0f} MB (device time of "
+                  f"one call {dev_ms:.4f} ms: {sorted(traced)}), plain torch "
                   f"{plain_ms:.4f} ms, one PyTorch call {lib_txt}, bound "
                   f"{bms:.4f} ms ({by}{', L2-resident' if b == 1 else ''}) "
                   f"{tag}")
@@ -472,23 +486,36 @@ def main() -> int:
     hp, wp, lv = codec.base.hp, codec.base.wp, codec.base.levels
     # each K1 pass (one base/trunc evaluation) and each idwt pass ([B, hp,
     # wp] at the base levels) as achieved GB/s of its own bytes, beside the
-    # probes' ceilings for the same [B, 768, 1472] at B=16 (row shuffle k2,
-    # transpose sandwich k3, fma stream k0)
+    # probes' ceilings for the same [B, 768, 1472] at B=16: k2 the data
+    # movement of the register row form, k3 a column pass done as an
+    # on-chip transpose sandwich, k0 an fma stream
     nbytes = pass_bytes(BATCH, hp, wp, lv, H, W)
     passes = {**{k: k1_passes.get(k, (0.0, 0)) for k in K1_PASSES},
               **{k: idwt_passes.get(k, (0.0, 0)) for k in IDWT_PASSES}}
+    gbs = {name: f"{nbytes[name] / us * 1e-3:.0f} GB/s" if us else
+           "not measured" for name, (us, _) in passes.items()}
     for name, (us, n) in passes.items():
-        gbs = f"{nbytes[name] / us * 1e-3:.0f} GB/s" if us else \
-            "not measured"
         print(f"pass {name}: {us / 1e3:.4f} ms over {n} launches, "
-              f"{nbytes[name] / 1e6:.1f} MB, {gbs} {tag}")
+              f"{nbytes[name] / 1e6:.1f} MB, {gbs[name]} {tag}")
     other = sum(us for k, (us, _) in k1_passes.items() if k not in K1_PASSES)
     print(f"K1 base/trunc wrapper's torch ops: {other / 1e3:.4f} ms {tag}")
     probe_bytes = 8 * BATCH * 768 * 1472
-    ceilings = {n: f"{probe_bytes / probe_times[(n, BATCH)][0] * 1e-6:.0f} "
-                   "GB/s" for n in ("probe_lane_interleave",
-                                    "probe_transpose", "probe_elementwise")}
-    print(f"the probes' ceilings at B={BATCH}: {ceilings} {tag}")
+
+    def ceiling(name):
+        return (f"{probe_bytes / probe_times[(name, BATCH)][0] * 1e-6:.0f} "
+                "GB/s")
+
+    print(f"ceilings at B={BATCH} ({probe_bytes / 1e6:.0f} MB):\n"
+          f"  the register row form, k2 probe_lane_interleave "
+          f"{ceiling('probe_lane_interleave')}; eval_lift_rows "
+          f"{gbs['eval_lift_rows']}, idwt_lift_rows "
+          f"{gbs['idwt_lift_rows']}\n"
+          f"  a column pass as an on-chip transpose sandwich, k3 "
+          f"probe_transpose {ceiling('probe_transpose')}; eval_lift_cols "
+          f"{gbs['eval_lift_cols']}, idwt_lift_cols "
+          f"{gbs['idwt_lift_cols']}\n"
+          f"  an fma stream, k0 probe_elementwise "
+          f"{ceiling('probe_elementwise')} {tag}")
 
     phase("probe path: python -m ebcc_tpu_torch.scripts.idwt_probe "
           f"(B = {probe_cli.BATCHES})")
@@ -799,8 +826,8 @@ def main() -> int:
         "probe_row_pairs": "scripts/pallas_idwt_probe2.py:78"}
 
     def probe_entry(name):
-        ms, plain_ms, lib_ms, lib_call, (bms, by), dev_ms = probe_times[
-            (name, BATCH)]
+        ms, plain_ms, lib_ms, lib_call, (bms, by), dev_ms, lib_dev_ms = \
+            probe_times[(name, BATCH)]
         b1 = probe_times[(name, 1)]
         return {"name": name, "route": "cuda",
                 "source": "ebcc_tpu_torch/csrc/idwt_probe.cu",
@@ -809,13 +836,16 @@ def main() -> int:
                 "launches_max_error_path": launches_max[name],
                 "launches_pointwise_path": launches_pw[name],
                 "max_abs_err": probe_err[name], "ms": ms,
+                "gb_per_s": 8 * BATCH * 768 * 1472 / ms * 1e-6,
                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                 "library_ms": lib_ms, "library_call": lib_call,
-                "device_ms": dev_ms, "shape": [BATCH, 768, 1472],
+                "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+                "shape": [BATCH, 768, 1472],
                 "b1_l2_resident": {"ms": b1[0], "plain_ms": b1[1],
                                    "library_ms": b1[2],
                                    "bound_ms": b1[4][0],
-                                   "device_ms": b1[5]}}
+                                   "device_ms": b1[5],
+                                   "library_device_ms": b1[6]}}
 
     record = {"kernels": [
         entry("level0_counts", "level0_counts.cu",

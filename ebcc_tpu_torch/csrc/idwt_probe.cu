@@ -12,17 +12,61 @@
 //                              access pattern), +1 on even rows, -1 on odd
 //   probe_row_pairs        q1  the (H/2, 2, W) form: one thread reads and
 //                              writes both rows of a pair
-//   probe_lane_interleave  k2  a row shuffle without lifting: whole rows
-//                              staged in shared memory as [even | odd]
-//                              halves, +-1, interleaved on a scalar store
-//                              with a division and modulo per element
-//   probe_transpose        k3  x -> a global [B, W, H] workspace (the TPU
-//                              kernel's VMEM (WP, HP) scratch) -> x * 1.0001,
-//                              two tiled shared-memory transposes
+//   probe_lane_interleave  k2  the stride-2 lane split in registers, the
+//                              data movement of lifting.cuh's vector row
+//                              run without its lifting
+//   probe_transpose        k3  the transpose sandwich through the TPU
+//                              kernel's VMEM (WP, HP) scratch, with the
+//                              scratch in shared memory
 //
-// What bounds them here: memory traffic; each reads its input once and
-// writes its output once (k3 also writes and reads the workspace), a few
-// operations per element at most.  They are simple first versions.
+// What bounds them here: memory traffic.  Each reads its input once and
+// writes its output once, in one launch, with a few operations per
+// element at most: at [16, 768, 1472], 145 MB, or 0.0432 ms at 3.35 TB/s.
+//
+// k2 (even = x[:, 0::2]; odd = x[:, 1::2]; out = interleave(even + 1,
+// odd - 1)).  W is even, so a column's parity is its flat index's parity
+// and no pair straddles a row: the kernel walks the batch as one flat
+// stream of runs of 4 pairs.  A thread loads a run as two float4,
+// (e0 o0 e1 o1) (e2 o2 e3 o3), renames them into a float4 of evens and one
+// of odds, adds +1 / -1 and interleaves them back into two float4 stores.
+// The two float4 of a run lie a block's width apart, so that each warp
+// access covers 512 contiguous bytes, as k0's does (adjacent float4 would
+// halve every access's sectors between two instructions).
+// No shared memory, no sync, no division: runs are walked by a grid
+// stride, so any even W is taken (W % 4 == 2 included).  Where x or out is
+// not 16-byte aligned (a tensor at an odd storage offset) the same runs
+// take scalar loads and stores, in the same kernel.
+//
+// k3 (scratch = x^T; out = (scratch * 1.0001)^T).  A block owns a 64x64
+// tile of one frame, in two 16 KB shared tiles: A, the input (the TPU's
+// i_ref in VMEM), and B, the scratch.  It loads A with 16-byte coalesced
+// loads (four per thread, all issued before the first use); transposes A
+// into B by 4x4 blocks, four float4 reads of A turned into four float4
+// writes of B in registers; reads B back by columns, again by 4x4 blocks,
+// with another thread mapping (the block a thread wrote is read by the
+// thread of the transposed index); multiplies by 1.0001f (a plain
+// multiply) and stores with 16-byte coalesced writes.  One HBM read and
+// one HBM write per element, two syncs, one launch.
+
+//   Bank conflicts: every shared access is 16 bytes, and a quarter-warp's
+// eight must fall into eight distinct 16-byte bank groups.  A row walk
+// (eight groups of one row) does; a column walk of 4x4 blocks (eight
+// rows four apart, one group) would hit one group eight times.  So a
+// tile's float4 group g of row r is stored at g ^ ((r >> 2) & 7): both
+// walks then see eight distinct groups, and no padding breaks the 16-byte
+// alignment.
+//   Bytes in flight: 32 KB of static shared memory and 256 threads a
+// block let 7 blocks share an SM (by shared memory; 8 by threads), each
+// with 16 KB of loads in flight while its neighbours transpose and store.
+// A persistent block per SM fed by a TMA ring would need a second path
+// anyway for W % 4 == 2 (a tensor map needs a 16-byte row stride), so the
+// tile grid is the simpler way to the same bytes in flight.
+//   Ragged edges: tiles past H or W are masked per float4 (vector form:
+// W % 4 == 0 and x, out 16-byte aligned) or per element (scalar form, in
+// the same kernel: W % 4 == 2 or a misaligned tensor); shared memory and
+// the 4x4 transposes are the same in both forms.//
+// k2 and k3 read each element once and write it once, so their 16-byte
+// accesses are streaming ones (__ldcs / __stcs, evict first in L2).
 //
 // k0's arithmetic is __fmaf_rn: the JAX kernel's multiply-add contracts
 // to one fma, and -fmad=false would otherwise keep the two apart.
@@ -36,8 +80,11 @@ namespace {
 
 constexpr float kScale = 1.0001f;
 constexpr int kLine = 256;      // threads per block of the 1-D kernels
-constexpr int kTile = 32;       // transpose tile side
-constexpr int kTileRows = 8;    // thread rows of a transpose block
+constexpr int64_t kMaxGrid = 1 << 20;  // blocks of a grid-stride launch
+constexpr int kTile = 64;       // transpose tile side (floats)
+constexpr int kQuads = kTile / 4;  // float4 groups along a tile row
+static_assert(kQuads * kQuads == kThreads,
+              "a transpose block has a thread per 4x4 block of its tile");
 
 __global__ void probe_elementwise(const float4* __restrict__ x,
                                   float4* __restrict__ out, int64_t n4) {
@@ -78,63 +125,142 @@ __global__ void probe_row_pairs(const float* __restrict__ x,
   out[k + W] = odd - 1.0f;
 }
 
-// grid (row blocks, B): a block stages rows [r0, r0 + rows) of one frame
-__global__ void probe_lane_interleave(const float* __restrict__ x,
-                                      float* __restrict__ out, int H, int W,
-                                      int rows) {
-  extern __shared__ float sm[];  // [rows][W], each row as [even | odd]
-  const int r0 = blockIdx.x * rows;
-  const int nr = min(rows, H - r0);
-  const int n2 = W / 2;
-  const int64_t off = (int64_t)blockIdx.y * H * W + (int64_t)r0 * W;
-  for (int k = threadIdx.x; k < nr * W; k += kThreads) {
-    const int rr = k / W, c = k - rr * W;
-    sm[rr * W + (c & 1) * n2 + (c >> 1)] = x[off + k];
+// the 4 floats of a row at p of which `valid` lie in the frame (zeros
+// past them); kVec: valid <= 0 or >= 4 and p 16-byte aligned, a streaming
+// 16-byte load (read once)
+template <bool kVec>
+__device__ __forceinline__ float4 load_quad(const float* __restrict__ p,
+                                            int valid) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (kVec) {
+    if (valid > 0) v = __ldcs(reinterpret_cast<const float4*>(p));
+  } else {
+    if (valid > 0) v.x = p[0];
+    if (valid > 1) v.y = p[1];
+    if (valid > 2) v.z = p[2];
+    if (valid > 3) v.w = p[3];
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < nr * n2; k += kThreads) {
-    float* s = sm + (k / n2) * W;
-    const int i = k % n2;
-    s[i] = s[i] + 1.0f;
-    s[n2 + i] = s[n2 + i] - 1.0f;
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < nr * W; k += kThreads) {
-    const int rr = k / W, c = k - rr * W;
-    const float* s = sm + rr * W;
-    out[off + k] = (c & 1) ? s[n2 + (c >> 1)] : s[c >> 1];
+  return v;
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store_quad(float* __restrict__ p, float4 v,
+                                           int valid) {
+  if (kVec) {
+    if (valid > 0) __stcs(reinterpret_cast<float4*>(p), v);
+  } else {
+    if (valid > 0) p[0] = v.x;
+    if (valid > 1) p[1] = v.y;
+    if (valid > 2) p[2] = v.z;
+    if (valid > 3) p[3] = v.w;
   }
 }
 
-// out[b][c][r] = in[b][r][c] (times kScale when kMul) for in [B, R, C];
-// grid (C / kTile, R / kTile, B), block (kTile, kTileRows)
-template <bool kMul>
-__device__ __forceinline__ void transpose_tile(const float* __restrict__ in,
-                                               float* __restrict__ out,
-                                               int R, int C) {
-  __shared__ float tile[kTile][kTile + 1];
-  const int64_t frame = (int64_t)blockIdx.z * R * C;
+// grid-stride over chunks of 2 kThreads float4 of the flat stream of n4
+// float4: thread t's run is float4 t and t + kThreads of a chunk (4 pairs;
+// a warp's access covers 512 contiguous bytes); the last run may hold 2
+template <bool kVec>
+__device__ __forceinline__ void lane_runs(const float* __restrict__ x,
+                                          float* __restrict__ out,
+                                          int64_t n4) {
+  const int64_t step = (int64_t)gridDim.x * 2 * kThreads;
+  for (int64_t j = (int64_t)blockIdx.x * 2 * kThreads + threadIdx.x; j < n4;
+       j += step) {
+    const int n = j + kThreads < n4 ? 8 : 4;  // floats in the run
+    const float4 lo = load_quad<kVec>(x + 4 * j, 4);
+    const float4 hi = load_quad<kVec>(x + 4 * (j + kThreads), n - 4);
+    // x[0::2] and x[1::2]: a rename of registers
+    float4 even = make_float4(lo.x, lo.z, hi.x, hi.z);
+    float4 odd = make_float4(lo.y, lo.w, hi.y, hi.w);
+    even.x += 1.0f; even.y += 1.0f; even.z += 1.0f; even.w += 1.0f;
+    odd.x -= 1.0f; odd.y -= 1.0f; odd.z -= 1.0f; odd.w -= 1.0f;
+    store_quad<kVec>(out + 4 * j, make_float4(even.x, odd.x, even.y, odd.y),
+                     4);
+    store_quad<kVec>(out + 4 * (j + kThreads),
+                     make_float4(even.z, odd.z, even.w, odd.w), n - 4);
+  }
+}
+
+// vec: x and out 16-byte aligned
+__global__ void __launch_bounds__(kThreads)
+probe_lane_interleave(const float* __restrict__ x, float* __restrict__ out,
+                      int64_t n4, int vec) {
+  if (vec)
+    lane_runs<true>(x, out, n4);
+  else
+    lane_runs<false>(x, out, n4);
+}
+
+// the float4 slot of group g (4 floats) of row r in a kTile x kTile
+// shared tile, g XOR-swizzled by bits 2-4 of r (see the note above)
+__device__ __forceinline__ int quad(int r, int g) {
+  return r * kQuads + (g ^ ((r >> 2) & 7));
+}
+
+// v[k].j <-> v[j].k: a 4x4 block transposed in registers
+__device__ __forceinline__ void transpose4(float4 (&v)[4]) {
+  const float4 t[4] = {v[0], v[1], v[2], v[3]};
+  v[0] = make_float4(t[0].x, t[1].x, t[2].x, t[3].x);
+  v[1] = make_float4(t[0].y, t[1].y, t[2].y, t[3].y);
+  v[2] = make_float4(t[0].z, t[1].z, t[2].z, t[3].z);
+  v[3] = make_float4(t[0].w, t[1].w, t[2].w, t[3].w);
+}
+
+// out = (x^T * kScale)^T on the kTile x kTile tile (blockIdx.y,
+// blockIdx.x) of frame blockIdx.z, through a (the tile) and b (the
+// scratch), each kTile x kQuads float4 in shared memory
+template <bool kVec>
+__device__ __forceinline__ void transpose_sandwich(
+    const float* __restrict__ x, float* __restrict__ out, int H, int W,
+    float4* a, float4* b) {
+  const int hi = threadIdx.x / kQuads, lo = threadIdx.x % kQuads;
   const int r0 = blockIdx.y * kTile, c0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x;
-  for (int j = threadIdx.y; j < kTile; j += kTileRows)
-    if (r0 + j < R && c0 + tx < C)
-      tile[j][tx] = in[frame + (int64_t)(r0 + j) * C + c0 + tx];
+  const int64_t frame = (int64_t)blockIdx.z * H * W;
+  // a = the tile: rows hi + kQuads * k at group lo, the four loads first
+  float4 v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int r = r0 + hi + kQuads * k;
+    v[k] = load_quad<kVec>(x + frame + (int64_t)r * W + c0 + 4 * lo,
+                           r < H ? W - c0 - 4 * lo : 0);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) a[quad(hi + kQuads * k, lo)] = v[k];
   __syncthreads();
-  for (int j = threadIdx.y; j < kTile; j += kTileRows)
-    if (c0 + j < C && r0 + tx < R) {
-      const float v = tile[tx][j];
-      out[frame + (int64_t)(c0 + j) * R + r0 + tx] = kMul ? v * kScale : v;
-    }
+  // b = a^T: block (lo, hi) of a, rows 4 lo .. 4 lo + 3 at group hi,
+  // becomes block (hi, lo) of b
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = a[quad(4 * lo + k, hi)];
+  transpose4(v);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) b[quad(4 * hi + k, lo)] = v[k];
+  __syncthreads();
+  // out = (b * kScale)^T: block (lo, hi) of b, read by columns into
+  // registers, becomes out's rows 4 hi .. 4 hi + 3 at group lo
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[k] = b[quad(4 * lo + k, hi)];
+    v[k].x *= kScale; v[k].y *= kScale; v[k].z *= kScale; v[k].w *= kScale;
+  }
+  transpose4(v);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int r = r0 + 4 * hi + k;
+    store_quad<kVec>(out + frame + (int64_t)r * W + c0 + 4 * lo, v[k],
+                     r < H ? W - c0 - 4 * lo : 0);
+  }
 }
 
-__global__ void probe_transpose_in(const float* __restrict__ x,
-                                   float* __restrict__ work, int H, int W) {
-  transpose_tile<false>(x, work, H, W);
-}
-
-__global__ void probe_transpose_out(const float* __restrict__ work,
-                                    float* __restrict__ out, int H, int W) {
-  transpose_tile<true>(work, out, W, H);
+// grid (W / kTile, H / kTile, B) rounded up, block kThreads; vec: W % 4
+// == 0 and x, out 16-byte aligned
+__global__ void __launch_bounds__(kThreads)
+probe_transpose(const float* __restrict__ x, float* __restrict__ out, int H,
+                int W, int vec) {
+  __shared__ float4 a[kTile * kQuads], b[kTile * kQuads];
+  if (vec)
+    transpose_sandwich<true>(x, out, H, W, a, b);
+  else
+    transpose_sandwich<false>(x, out, H, W, a, b);
 }
 
 int64_t blocks(int64_t n, int per) { return (n + per - 1) / per; }
@@ -186,36 +312,29 @@ int ebcc_probe_row_pairs(int device, const float* x, float* out, int B,
   return (int)cudaGetLastError();
 }
 
-// out[..., c] = x[..., c] + 1 on even columns c, - 1 on odd columns;
-// W <= 24576 (one row in lifting.cuh's kRowSmem)
+// out[..., c] = x[..., c] + 1 on even columns c, - 1 on odd columns
 int ebcc_probe_lane_interleave(int device, const float* x, float* out,
                                int B, int H, int W, cudaStream_t stream) {
   cudaError_t e = check_shape(device, B, H, W);
   if (e != cudaSuccess) return (int)e;
-  const int rows = min(64, kRowSmem / (W * (int)sizeof(float)));
-  if (rows < 1) return (int)cudaErrorInvalidValue;
-  const int bytes = rows * W * (int)sizeof(float);
-  cudaFuncSetAttribute(probe_lane_interleave,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  probe_lane_interleave<<<dim3((unsigned)blocks(H, rows), B), kThreads,
-                          bytes, stream>>>(x, out, H, W, rows);
+  const int64_t n4 = (int64_t)B * H * W / 4;
+  const int64_t grid = blocks(n4, 2 * kThreads);
+  probe_lane_interleave<<<(unsigned)(grid < kMaxGrid ? grid : kMaxGrid),
+                          kThreads, 0, stream>>>(
+      x, out, n4, aligned16(x) && aligned16(out));
   return (int)cudaGetLastError();
 }
 
-// work f32 [B, W, H] = x transposed; out = (work * 1.0001f) transposed
-int ebcc_probe_transpose(int device, const float* x, float* out, float* work,
-                         int B, int H, int W, cudaStream_t stream) {
+// out = ((x transposed) * 1.0001f) transposed, one launch, the scratch in
+// shared memory
+int ebcc_probe_transpose(int device, const float* x, float* out, int B,
+                         int H, int W, cudaStream_t stream) {
   cudaError_t e = check_shape(device, B, H, W);
   if (e != cudaSuccess) return (int)e;
-  if ((W + kTile - 1) / kTile > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 block(kTile, kTileRows);
-  probe_transpose_in<<<dim3((unsigned)blocks(W, kTile),
-                            (unsigned)blocks(H, kTile), B),
-                       block, 0, stream>>>(x, work, H, W);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  probe_transpose_out<<<dim3((unsigned)blocks(H, kTile),
-                             (unsigned)blocks(W, kTile), B),
-                        block, 0, stream>>>(work, out, H, W);
+  probe_transpose<<<dim3((unsigned)blocks(W, kTile),
+                         (unsigned)blocks(H, kTile), B),
+                    kThreads, 0, stream>>>(
+      x, out, H, W, W % 4 == 0 && aligned16(x) && aligned16(out));
   return (int)cudaGetLastError();
 }
 

@@ -4,9 +4,11 @@ Counterparts of the TPU lowering probes k0-k3 (``scripts/pallas_idwt_probe.py``)
 and q1 (``scripts/pallas_idwt_probe2.py``), batched over f32 ``[B, H, W]``
 with H and W even.  Each kernel of ``csrc/idwt_probe.cu`` keeps its probe's
 primitive as its data path (an fma stream, row and lane stride-2
-interleaves, a transpose through a global workspace), so its time is the
-card's figure for that primitive; the plain versions below follow the JAX
-bodies op for op.  :func:`probe` launches the kernel for a CUDA tensor and
+interleaves, the lane split as a rename of registers, a transpose sandwich
+whose scratch is shared memory), so its time is the card's figure for that
+primitive; each is one launch that allocates nothing, and the wrapper
+allocates only the output.  The plain versions below follow the JAX bodies
+op for op.  :func:`probe` launches the kernel for a CUDA tensor and
 runs the plain version for a CPU tensor; the entry point is
 ``python -m ebcc_tpu_torch.scripts.idwt_probe``.
 """
@@ -63,26 +65,22 @@ PLAIN = {"probe_elementwise": elementwise_ref,
          "probe_row_pairs": row_pairs_ref}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# (device, x, out, [work,] B, H, W, stream): one library, one entry each
-KERNELS = {name: cuda.Kernel(
-    name, f"ebcc_{name}",
-    [_I, _P, _P] + [_P] * (name == "probe_transpose") + [_I, _I, _I, _P],
-    library="idwt_probe") for name in PLAIN}
+# (device, x, out, B, H, W, stream): one library, one entry each
+KERNELS = {name: cuda.Kernel(name, f"ebcc_{name}",
+                             [_I, _P, _P, _I, _I, _I, _P],
+                             library="idwt_probe") for name in PLAIN}
 
 
 def probe_cuda(name: str, x: torch.Tensor) -> torch.Tensor:
     """Launch probe kernel ``name`` on a contiguous f32 CUDA tensor
-    ``[B, H, W]`` (H, W even) into a new tensor; k3 transposes through a
-    ``[B, W, H]`` workspace."""
+    ``[B, H, W]`` (H, W even) into a new tensor, the only one allocated."""
     if x.dim() != 3 or x.shape[1] % 2 or x.shape[2] % 2:
         raise ValueError(f"{name}: expected [B, H, W] with H and W even, "
                          f"got {tuple(x.shape)}")
     batch, h, w = x.shape
     cuda.require_cuda_tensor(x, "x", torch.float32, (batch, h, w))
     out = torch.empty_like(x)
-    work = [x.new_empty((batch, w, h))] if name == "probe_transpose" else []
-    KERNELS[name].launch(x.device, x.data_ptr(), out.data_ptr(),
-                         *(t.data_ptr() for t in work), batch, h, w)
+    KERNELS[name].launch(x.device, x.data_ptr(), out.data_ptr(), batch, h, w)
     return out
 
 

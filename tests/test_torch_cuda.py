@@ -208,16 +208,56 @@ def test_idwt_rejects_bad_tensors(card):
         idwt.idwt2d_multi_cuda(torch.zeros((1, 90, 160), device=card), 3)
 
 
-@pytest.mark.parametrize("batch", [1, 16])
-@pytest.mark.parametrize("name", list(ip.PLAIN))
-def test_idwt_probe_kernel_matches_plain(card, name, batch):
-    """Each probe kernel bit-equal to its plain version at [B, 768, 1472]."""
-    x = torch.from_numpy(np.random.default_rng(batch).standard_normal(
-        (batch, 768, 1472)).astype(np.float32)).to(card)
+# every probe at the probes' frame, B = 1 and 16; k2 and k3 also at the
+# edges of their designs: a ragged last tile with W % 4 == 2, one 2x2
+# frame, a tile and a row and a column more; k2 at W = 32768, wider than
+# a row of lifting.cuh's kRowSmem
+PROBE_CASES = (
+    [pytest.param(name, (batch, 768, 1472), id=f"{name}-{batch}")
+     for batch in (1, 16) for name in ip.PLAIN] +
+    [pytest.param(name, shape, id=f"{name}-" + "x".join(map(str, shape)))
+     for name in ("probe_lane_interleave", "probe_transpose")
+     for shape in ((3, 770, 1474), (1, 2, 2), (2, 66, 130))] +
+    [pytest.param("probe_lane_interleave", (1, 4, 32768),
+                  id="probe_lane_interleave-1x4x32768")])
+
+
+@pytest.mark.parametrize("name,shape", PROBE_CASES)
+def test_idwt_probe_kernel_matches_plain(card, name, shape):
+    """Each probe kernel bit-equal to its plain version, one launch a
+    call."""
+    x = torch.from_numpy(np.random.default_rng(shape[0]).standard_normal(
+        shape).astype(np.float32)).to(card)
     before = ip.KERNELS[name].launches
     out = ip.probe(name, x)
     assert ip.KERNELS[name].launches == before + 1
     assert torch.equal(out, ip.PLAIN[name](x))
+
+
+@pytest.mark.parametrize("name", ["probe_lane_interleave", "probe_transpose"])
+def test_idwt_probe_kernel_unaligned(card, name):
+    """A tensor 8 bytes past a 16-byte boundary takes the scalar form of
+    the same kernel, bit-equal."""
+    flat = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        2 + 2 * 66 * 128).astype(np.float32)).to(card)
+    x = flat[2:].view(2, 66, 128)
+    assert x.data_ptr() % 16 == 8
+    assert torch.equal(ip.probe(name, x), ip.PLAIN[name](x))
+
+
+def test_probe_transpose_allocates_only_its_output(card):
+    """k3's scratch is shared memory: a call allocates its output and
+    nothing else on the device, at any moment of the call."""
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (4, 768, 1472)).astype(np.float32)).to(card)
+    ip.probe("probe_transpose", x)  # build and load first
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    out = ip.probe("probe_transpose", x)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(card) - before == out.nbytes
+    assert torch.cuda.max_memory_allocated(card) - before == out.nbytes
 
 
 def test_cuda_pointwise_compress_matches_cpu_and_native(card):

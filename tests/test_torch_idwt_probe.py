@@ -15,6 +15,7 @@ on a card.
 """
 
 import contextlib
+import ctypes
 import importlib.util
 import io
 import json
@@ -108,7 +109,8 @@ def _pallas(captured, name, frame, monkeypatch):
 
 @pytest.mark.parametrize("name", list(TPU))
 @pytest.mark.parametrize("batch,h,w", [(1, HP, WP), (3, HP, WP),
-                                       (1, 32, 160), (3, 32, 160)])
+                                       (1, 32, 160), (3, 32, 160),
+                                       (1, 66, 130), (3, 66, 130)])
 def test_plain_matches_pallas(captured, name, batch, h, w, monkeypatch):
     """Bit-equal to the TPU kernel, frame by frame (tolerance 0; k0's fma
     through the float64 emulation of ops/frame.py)."""
@@ -157,6 +159,29 @@ def test_probe_kernels_share_one_library():
     for k in ip.KERNELS.values():
         assert f"int {k.entry}(" in src
     assert cuda.Kernel("idwt", "ebcc_idwt", []).library == "idwt"
+
+
+def test_every_entry_takes_the_same_arguments():
+    """No entry takes a workspace: k3's scratch lives in shared memory, so
+    its argtypes are every other probe's (device, x, out, B, H, W,
+    stream)."""
+    want = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    for k in ip.KERNELS.values():
+        assert k.argtypes == want, k.name
+
+
+def test_transpose_entry_signature_has_no_workspace():
+    """The C entry of k3 is (device, x, out, B, H, W, stream): no ``work``
+    pointer in its signature."""
+    src = open(ip.KERNELS["probe_transpose"].source).read()
+    head = "int ebcc_probe_transpose("
+    assert src.count(head) == 1
+    sig = src[src.index(head):src.index(")", src.index(head))]
+    assert "work" not in sig
+    assert [a.split()[-1].lstrip("*") for a in
+            sig[len(head):].split(",")] == ["device", "x", "out", "B", "H",
+                                            "W", "stream"]
 
 
 def test_entry_point_on_cpu(capsys):
