@@ -9,7 +9,9 @@ drives three paths once each through the user entry points, on "cuda"; the
 two codec paths with 32 frames of 721x1440 float32 (the bench recipe of
 bench.py):
 
-* MAX_ERROR compress + decompress (error 0.5, batches of 16);
+* MAX_ERROR compress + decompress (error 0.5, batches of 16), and the
+  first 4 frames again with ``encode_backend="cpu"`` (the native encoder,
+  no kernel launched, the same bytes);
 * POINTWISE_MAX_ERROR compress + decompress against a per-point bound
   (a synthetic 0.5-degree ensemble spread upsampled to 721x1440 by
   ``dataprep.upsample_3t_2s``), then ``DirectCompressor`` over the same
@@ -96,45 +98,59 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_times(fn):
+def kernel_times(fn, tries: int = 3):
     """Device time by kernel of one ``fn()`` call under torch.profiler,
     after one traced warm-up call whose events are dropped (a cold trace
-    can miss its first kernels): ({short kernel name: (microseconds,
-    launches)}, wall microseconds)."""
+    can miss its first kernels); a trace that recorded no device event at
+    all is taken again, up to ``tries`` times: ({short kernel name:
+    (microseconds, launches)}, wall microseconds)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 acc_events=True) as prof:
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-        prof.step()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e6
-        prof.step()
-    out = {}
-    for ev in prof.events():
-        # the step's own span sits on the device track too: not a kernel
-        if (ev.device_type != torch.autograd.DeviceType.CUDA or
-                ev.name.startswith("ProfilerStep")):
-            continue
-        name = ev.name.replace("(anonymous namespace)::", "")
-        name = name.split("<")[0].split("(")[0].split("::")[-1].split()[-1]
-        us, n = out.get(name, (0.0, 0))
-        out[name] = (us + ev.time_range.elapsed_us(), n + 1)
-    if not out:
-        print("torch.profiler recorded no device time")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     acc_events=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+            prof.step()
+        out = {}
+        for ev in prof.events():
+            # the step's own span sits on the device track too: not a kernel
+            if (ev.device_type != torch.autograd.DeviceType.CUDA or
+                    ev.name.startswith("ProfilerStep")):
+                continue
+            name = ev.name.replace("(anonymous namespace)::", "")
+            name = name.split("<")[0].split("(")[0].split("::")[-1]
+            name = name.split()[-1]
+            us, n = out.get(name, (0.0, 0))
+            out[name] = (us + ev.time_range.elapsed_us(), n + 1)
+        if out:
+            return out, wall
+    print(f"torch.profiler recorded no device time in {tries} traces")
     return out, wall
+
+
+def device_ms(traced):
+    """Milliseconds of device time in a :func:`kernel_times` trace, or
+    None where the profiler recorded none."""
+    return sum(us for us, _ in traced.values()) / 1e3 if traced else None
+
+
+def ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 K1_PASSES = ("eval_lift_cols", "eval_lift_rows", "eval_rows_tail")
 IDWT_PASSES = ("idwt_lift_cols", "idwt_lift_rows")
 OURS_K = K1_PASSES + IDWT_PASSES + ("eval_reset", "eval_compose_tail",
-                                    "idwt_copy", "level0_hist",
-                                    "level0_finalize")
+                                    "idwt_copy", "level0_stripe")
 
 
 def print_profile(label, kernels, wall_us, tag):
@@ -291,6 +307,7 @@ def main() -> int:
 
     phase("K2 level0_counts vs plain torch (integer-equal)")
     k2_err = 0
+    k2_device = {}
     for name, (geom, a, _) in layers.items():
         p, j = geom.spec.nplanes, geom.spec.nchunks
         out = l0.level0_counts(a.msb, a.smax[1], p, j)
@@ -299,10 +316,20 @@ def main() -> int:
         k2_err = max(k2_err, err)
         if not torch.equal(out, ref):
             raise AssertionError(f"K2 {name}: counts differ (max {err})")
+
+        def k2_call():
+            return l0.level0_counts(a.msb, a.smax[1], p, j)
         times[("K2", name)] = (
-            cuda_ms(lambda: l0.level0_counts(a.msb, a.smax[1], p, j)),
+            cuda_ms(k2_call),
             cuda_ms(lambda: l0.level0_counts_ref(a.msb, a.smax[1], p, j), 3))
-        print(f"{name} {tuple(a.msb.shape)} P={p} J={j}: equal")
+        # a call's host dispatch is about as long as the kernel: the
+        # profiler's device time of one call reads the kernel alone
+        traced, _ = kernel_times(k2_call)
+        k2_device[name] = device_ms(traced)
+        print(f"{name} {tuple(a.msb.shape)} P={p} J={j}: equal; device "
+              f"time of one call {ms_text(k2_device[name])} "
+              f"({', '.join(f'{k} x{n}' for k, (_, n) in traced.items())}); "
+              f"event mean {times[('K2', name)][0]:.4f} ms {tag}")
 
     frames = torch.arange(BATCH, dtype=torch.int32, device=dev)
 
@@ -466,20 +493,19 @@ def main() -> int:
                 sum(k_ms) / 2, cuda_ms(lambda: plain(x), 3),
                 sum(lib_win) / 2 if same else None, call if same else None,
                 bound(8 * x.numel(), ops * x.numel()),
-                sum(us for us, _ in traced.values()) / 1e3,
-                sum(us for us, _ in lib_traced.values()) / 1e3
-                if same else None)
+                device_ms(traced), device_ms(lib_traced))
             ms, plain_ms, lib_ms, _, (bms, by), dev_ms, lib_dev_ms = \
                 probe_times[(name, b)]
             lib_txt = (f"{lib_ms:.4f} ms (windows {lib_win[0]:.4f} "
                        f"{lib_win[1]:.4f}; device time of one call "
-                       f"{lib_dev_ms:.4f} ms)" if same else "none")
+                       f"{ms_text(lib_dev_ms)})" if same else "none")
             print(f"  kernel {ms:.4f} ms (windows {k_ms[0]:.4f} "
                   f"{k_ms[1]:.4f}), {8 * x.numel() / ms * 1e-6:.0f} "
                   f"GB/s on {8 * x.numel() / 1e6:.0f} MB (device time of "
-                  f"one call {dev_ms:.4f} ms: {sorted(traced)}), plain torch "
-                  f"{plain_ms:.4f} ms, one PyTorch call {lib_txt}, bound "
-                  f"{bms:.4f} ms ({by}{', L2-resident' if b == 1 else ''}) "
+                  f"one call {ms_text(dev_ms)}: {sorted(traced)}), plain "
+                  f"torch {plain_ms:.4f} ms, one PyTorch call {lib_txt}, "
+                  f"bound {bms:.4f} ms "
+                  f"({by}{', L2-resident' if b == 1 else ''}) "
                   f"{tag}")
             del out, ref
         del x
@@ -586,6 +612,20 @@ def main() -> int:
 
     compare_to_native(blob, nblob, codec, lambda lo, q: np.float32(ERROR) - q)
     cr = data.nbytes / len(blob)
+
+    phase("encode_backend='cpu': the native encoder through compress "
+          "(first 4 frames)")
+    reset_counts()
+    cpu_blob = ebcc_tpu_torch.compress(
+        data[:4], dataclasses.replace(cfg, encode_backend="cpu"),
+        device="cuda")
+    if any(read_counts().values()):
+        raise AssertionError("encode_backend='cpu' launched a kernel")
+    if cpu_blob != container.pack_blob(container.unpack_blob(blob)[:4]):
+        raise AssertionError("encode_backend='cpu' bytes differ from the "
+                             "device encode's")
+    print("4/4 frames byte-identical to the device encode; no kernel "
+          "launched")
 
     phase("residual layer on cuda (pure-base fallback off, base quantile "
           "1e-3, first batch)")
@@ -805,6 +845,10 @@ def main() -> int:
                    layer_bound(kname, var.split("/")[0]))
         print(f"bound of {kname} {var}: {bms:.4f} ms ({by}), kernel "
               f"{ms:.4f} ms, {100 * bms / ms:.1f}% of the bound {tag}")
+        if kname == "K2" and k2_device[var] is not None:
+            print(f"  by the device time of one call "
+                  f"{ms_text(k2_device[var])}: "
+                  f"{100 * bms / k2_device[var]:.1f}% of the bound {tag}")
     print(f"device-only recon_packed (MAX_ERROR blob) {recon_ms:.3f} ms")
 
     def entry(name, source, replaces, err, key, bnd):
@@ -848,9 +892,13 @@ def main() -> int:
                                    "library_device_ms": b1[6]}}
 
     record = {"kernels": [
-        entry("level0_counts", "level0_counts.cu",
-              "ebcc_tpu/ops/pallas_kernels.py:78", k2_err, ("K2", "base"),
-              k2_bound),
+        dict(entry("level0_counts", "level0_counts.cu",
+                   "ebcc_tpu/ops/pallas_kernels.py:78", k2_err,
+                   ("K2", "base"), k2_bound),
+             device_ms=k2_device["base"],
+             resid={"ms": times[("K2", "resid")][0],
+                    "device_ms": k2_device["resid"],
+                    "bound_ms": layer_bound("K2", "resid")[0]}),
         entry("fused_eval", "fused_eval.cu",
               "ebcc_tpu/ops/pallas_eval.py:219", max(k1_err, k1p_err),
               k1p_key, k1_bound),

@@ -141,12 +141,13 @@ def compress(data, config: EBCCConfig | None = None, *, error_bound=None,
 
     ``error_bound``: the per-point bound array of POINTWISE_MAX_ERROR (one
     value per point of ``data``).  ``device``: where the transform and the
-    searches run ("cuda" or "cpu").  ``qbase``: base-layer feasibility
-    quantile override (defaults to the EBCC_INIT_BASE_ERROR_QUANTILE env
-    var).
+    searches run ("cuda" or "cpu").  ``config.encode_backend``: "cpu" runs
+    the native CPU encoder instead (``device`` unused; the same bytes),
+    "device" and "auto" run on ``device``.  ``qbase``: base-layer
+    feasibility quantile override (defaults to the
+    EBCC_INIT_BASE_ERROR_QUANTILE env var).
     """
     config = config or EBCCConfig()
-    dev = _device(device)
     if config.mode not in _ERROR_MODES:
         raise ValueError(f"ebcc_tpu_torch encodes the error-bounded modes "
                          f"only, not {config.mode!r}")
@@ -167,6 +168,9 @@ def compress(data, config: EBCCConfig | None = None, *, error_bound=None,
     config = _clamp_levels(config, h, w)
     if qbase is None:
         qbase = base_error_quantile()
+    if config.encode_backend == "cpu":
+        return _cpu_encode(frames, config, error_bound, qbase)
+    dev = _device(device)
     pointwise = config.mode == ResidualMode.POINTWISE_MAX_ERROR
     if pointwise:
         if error_bound is None:
@@ -193,6 +197,20 @@ def compress(data, config: EBCCConfig | None = None, *, error_bound=None,
             qbase)
         out_frames += _host_stage(res, codec, config, h, w)
     return container.pack_blob(out_frames)
+
+
+def _cpu_encode(frames, config, error_bound, qbase) -> bytes:
+    """``encode_backend="cpu"``: the native CPU encoder, whose containers
+    are byte-identical to the device path's (imported here because
+    ``runtime.cpu_encoder`` imports this module)."""
+    from .runtime import cpu_encoder
+    try:
+        _native.lib()
+    except (OSError, RuntimeError) as e:
+        raise RuntimeError("encode_backend='cpu' needs the native runtime "
+                           "(make -C native)") from e
+    return cpu_encoder.compress(frames, config, error_bound=error_bound,
+                                qbase=qbase)
 
 
 def _host_stage(res, codec, config, h, w) -> list[bytes]:

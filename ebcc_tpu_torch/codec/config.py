@@ -42,11 +42,14 @@ class EBCCConfig:
     :func:`ebcc_tpu_torch.compress`.  ``decode_backend`` chooses the
     decoder (:func:`ebcc_tpu_torch.decompress`: "cpu" is the native CPU
     decoder, "device" and "auto" the reconstruction on the caller's
-    device).  ``use_pallas_counts``, ``use_pallas_eval``,
-    ``prefetch_batches``, ``encode_backend`` and the ``*_cap_bits_per_px``
-    fields steer parts of the JAX package this package does not have: they
-    are accepted (so configurations cross between the packages) and not
-    read.  The CUDA kernels run whenever the tensors are on a CUDA device.
+    device); ``encode_backend`` the encoder (:func:`ebcc_tpu_torch.compress`:
+    "cpu" is the native CPU encoder, "device" and "auto" the caller's
+    device; the reference's tunnel routing of "auto" is not ported).
+    ``use_pallas_counts``, ``use_pallas_eval``, ``prefetch_batches`` and the
+    ``*_cap_bits_per_px`` fields steer parts of the JAX package this
+    package does not have: they are accepted (so configurations cross
+    between the packages) and not read.  The CUDA kernels run whenever the
+    tensors are on a CUDA device.
     """
 
     mode: ResidualMode = ResidualMode.MAX_ERROR

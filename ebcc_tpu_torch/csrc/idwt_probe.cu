@@ -23,6 +23,19 @@
 // writes its output once, in one launch, with a few operations per
 // element at most: at [16, 768, 1472], 145 MB, or 0.0432 ms at 3.35 TB/s.
 //
+// k1 (even = x[0::2, :]; odd = x[1::2, :]; out[0::2] = even + 1,
+// out[1::2] = odd - 1).  A thread takes one float4 at column quad c of
+// row pair p from each view, the even one at row 2p and the odd one at
+// row 2p + 1 of the flat [B * H, W] stack, issues both 16-byte loads
+// before their first use, adds +1 / -1 and writes both with 16-byte
+// stores.  A warp takes 32 neighbouring quads of one pair, so each of its
+// accesses covers 512 contiguous bytes of one row; the 8 warps of a block
+// take 8 pairs, and the grid strides over the pairs of the whole batch in
+// one launch (x: column quads; y: pair groups).  No shared memory, no
+// division, no workspace.  W % 4 == 2 (odd rows then start 8 bytes off a
+// 16-byte boundary) or a misaligned tensor takes the scalar form of the
+// same walk, in the same kernel.
+//
 // k2 (even = x[:, 0::2]; odd = x[:, 1::2]; out = interleave(even + 1,
 // odd - 1)).  W is even, so a column's parity is its flat index's parity
 // and no pair straddles a row: the kernel walks the batch as one flat
@@ -65,8 +78,9 @@
 // W % 4 == 0 and x, out 16-byte aligned) or per element (scalar form, in
 // the same kernel: W % 4 == 2 or a misaligned tensor); shared memory and
 // the 4x4 transposes are the same in both forms.//
-// k2 and k3 read each element once and write it once, so their 16-byte
-// accesses are streaming ones (__ldcs / __stcs, evict first in L2).
+// k1, k2 and k3 read each element once and write it once, so their
+// 16-byte accesses are streaming ones (__ldcs / __stcs, evict first in
+// L2).
 //
 // k0's arithmetic is __fmaf_rn: the JAX kernel's multiply-add contracts
 // to one fma, and -fmad=false would otherwise keep the two apart.
@@ -81,6 +95,8 @@ namespace {
 constexpr float kScale = 1.0001f;
 constexpr int kLine = 256;      // threads per block of the 1-D kernels
 constexpr int64_t kMaxGrid = 1 << 20;  // blocks of a grid-stride launch
+constexpr int64_t kMaxGridY = 65535;   // the grid's y extent
+constexpr int kWarps = kThreads / 32;  // warps of a kThreads block
 constexpr int kTile = 64;       // transpose tile side (floats)
 constexpr int kQuads = kTile / 4;  // float4 groups along a tile row
 static_assert(kQuads * kQuads == kThreads,
@@ -98,19 +114,6 @@ __global__ void probe_elementwise(const float4* __restrict__ x,
     v.w = __fmaf_rn(v.w, kScale, 0.5f);
     out[i] = v;
   }
-}
-
-// grid (column blocks, H, B): one thread per output element of row r
-__global__ void probe_row_interleave(const float* __restrict__ x,
-                                     float* __restrict__ out, int H, int W) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (c >= W) return;
-  const int64_t frame = (int64_t)blockIdx.z * H * W;
-  // x[0::2, :] and x[1::2, :]: views of H/2 rows at a pitch of two rows
-  const float* half = x + frame + (r & 1) * W;
-  const float v = half[(int64_t)(r >> 1) * (2 * W) + c];
-  out[frame + (int64_t)r * W + c] = (r & 1) ? v - 1.0f : v + 1.0f;
 }
 
 // grid (column blocks, H / 2, B): one thread per (row pair, column)
@@ -154,6 +157,46 @@ __device__ __forceinline__ void store_quad(float* __restrict__ p, float4 v,
     if (valid > 2) p[2] = v.z;
     if (valid > 3) p[3] = v.w;
   }
+}
+
+// grid (ceil(W4 / 32), row pair groups): warp w of block (bx, by) takes
+// column quads bx * 32 + lane of row pairs by * kWarps + w, stepping by
+// gridDim.y * kWarps pairs.  Pair p of the batch (frame p / (H/2), pair
+// p % (H/2)) is row p of the two views x[:, 0::2] and x[:, 1::2], which
+// start at x and x + W with a pitch of 2W: row 2p and row 2p + 1 of the
+// flat [B * H, W] stack, since H is even.  W4 = ceil(W / 4) quads a row,
+// of which the last holds W - 4 c valid floats.
+template <bool kVec>
+__device__ __forceinline__ void row_pair_quads(const float* __restrict__ x,
+                                               float* __restrict__ out,
+                                               int64_t pairs, int W, int w4) {
+  const int c = blockIdx.x * 32 + (threadIdx.x & 31);
+  if (c >= w4) return;
+  const int valid = W - 4 * c;
+  const int64_t step = (int64_t)gridDim.y * kWarps;
+  for (int64_t p = (int64_t)blockIdx.y * kWarps + (threadIdx.x >> 5);
+       p < pairs; p += step) {
+    const int64_t k = 2 * p * W + 4 * c;
+    const float* even = x + k;      // x[:, 0::2] at row p
+    const float* odd = x + k + W;   // x[:, 1::2] at row p
+    float4 e = load_quad<kVec>(even, valid);
+    float4 o = load_quad<kVec>(odd, valid);
+    e.x += 1.0f; e.y += 1.0f; e.z += 1.0f; e.w += 1.0f;
+    o.x -= 1.0f; o.y -= 1.0f; o.z -= 1.0f; o.w -= 1.0f;
+    store_quad<kVec>(out + k, e, valid);
+    store_quad<kVec>(out + k + W, o, valid);
+  }
+}
+
+// vec: W % 4 == 0 and x, out 16-byte aligned
+__global__ void __launch_bounds__(kThreads)
+probe_row_interleave(const float* __restrict__ x, float* __restrict__ out,
+                     int64_t pairs, int W, int vec) {
+  const int w4 = (W + 3) / 4;
+  if (vec)
+    row_pair_quads<true>(x, out, pairs, W, w4);
+  else
+    row_pair_quads<false>(x, out, pairs, W, w4);
 }
 
 // grid-stride over chunks of 2 kThreads float4 of the flat stream of n4
@@ -297,8 +340,13 @@ int ebcc_probe_row_interleave(int device, const float* x, float* out, int B,
                               int H, int W, cudaStream_t stream) {
   cudaError_t e = check_shape(device, B, H, W);
   if (e != cudaSuccess) return (int)e;
-  probe_row_interleave<<<dim3((unsigned)blocks(W, kLine), H, B), kLine, 0,
-                         stream>>>(x, out, H, W);
+  const int64_t pairs = (int64_t)B * H / 2;
+  const int64_t groups = blocks(pairs, kWarps);
+  probe_row_interleave<<<dim3((unsigned)blocks((W + 3) / 4, 32),
+                              (unsigned)(groups < kMaxGridY ? groups
+                                                            : kMaxGridY)),
+                         kThreads, 0, stream>>>(
+      x, out, pairs, W, W % 4 == 0 && aligned16(x) && aligned16(out));
   return (int)cudaGetLastError();
 }
 

@@ -7,9 +7,10 @@ sign and refinement bit counts of the level-0 passes — where ``par`` is
 the level-1 quadtree max ``smax[1]``, taken at its own (quarter)
 resolution.
 
-:func:`level0_counts` launches the CUDA kernel (``csrc/level0_counts.cu``)
-for CUDA tensors and runs :func:`level0_counts_ref`, the plain torch
-version, for CPU tensors.
+:func:`level0_counts` launches the CUDA kernel (``csrc/level0_counts.cu``:
+one launch, a thread block cluster per stripe, no scratch; the wrapper
+allocates only the output) for CUDA tensors and runs
+:func:`level0_counts_ref`, the plain torch version, for CPU tensors.
 """
 
 from __future__ import annotations
@@ -21,8 +22,10 @@ import torch
 from ..runtime import cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# (device, msb, smax1, B, hp, wp, P, J, out, stream): one launch, no
+# scratch
 KERNEL = cuda.Kernel("level0_counts", "ebcc_level0_counts",
-                     [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P])
+                     [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P])
 
 
 def level0_supported(height: int, width: int, group_levels: int,
@@ -81,8 +84,6 @@ def level0_counts(msb: torch.Tensor, smax1: torch.Tensor, nplanes: int,
         raise ValueError("msb and smax1 must be on one device")
     out = torch.empty((b, nchunks, nplanes, 3), dtype=torch.int32,
                       device=msb.device)
-    hist = torch.empty((b, nchunks, 2, nplanes + 1), dtype=torch.int32,
-                       device=msb.device)
     KERNEL.launch(msb.device, msb.data_ptr(), smax1.data_ptr(), b, hp, wp,
-                  nplanes, nchunks, hist.data_ptr(), out.data_ptr())
+                  nplanes, nchunks, out.data_ptr())
     return out

@@ -8,7 +8,7 @@ the native CPU codec.
   JAX's reconstructions agree to the documented device-vs-native gap;
 * POINTWISE_MAX_ERROR against a per-point bound array: the same byte
   identity, the bound through every decoder, the pointwise flag;
-* ``decode_backend`` routes the decode;
+* ``decode_backend`` routes the decode, ``encode_backend`` the encode;
 * configurations cross; the package imports without JAX; asking for CUDA
   without it raises.
 """
@@ -249,6 +249,71 @@ def test_decode_backend_routes_the_decode(pointwise, monkeypatch, backend):
     assert bool(calls) == (backend == "cpu")
     # the port's reconstruction follows the native decoder's arithmetic
     np.testing.assert_array_equal(rec, native_rec)
+
+
+ENCODE_CASES = CASES + [(ResidualMode.POINTWISE_MAX_ERROR, 0.3)]
+
+
+def _device_blob(blobs, pointwise, mode, err):
+    """(data, bound array or None, config, blob of the device path)."""
+    if mode == ResidualMode.POINTWISE_MAX_ERROR:
+        data, eb, blob, _ = pointwise
+        return data, eb, PW_CFG, blob
+    data, out = blobs
+    return data, None, _configs(mode, err)[0], out[mode][0]
+
+
+@pytest.mark.parametrize("mode,err", ENCODE_CASES, ids=lambda v: str(v))
+def test_cpu_encode_backend_runs_the_native_encoder(blobs, pointwise,
+                                                    monkeypatch, mode, err):
+    """encode_backend="cpu" encodes with the native CPU encoder: no
+    FrameCodec is built, and the bytes equal the native encoder's and the
+    device path's."""
+    data, eb, cfg, device_blob = _device_blob(blobs, pointwise, mode, err)
+    calls = []
+    real = cpu_encoder.compress
+    monkeypatch.setattr(cpu_encoder, "compress",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+
+    def no_codec(*a, **k):
+        raise AssertionError("FrameCodec built for encode_backend='cpu'")
+
+    monkeypatch.setattr(api, "FrameCodec", no_codec)
+    blob = ebcc_tpu_torch.compress(
+        data, dataclasses.replace(cfg, encode_backend="cpu"),
+        error_bound=eb, device="cpu")
+    assert calls == [1]
+    assert blob == device_blob
+    assert blob == real(data, cfg, error_bound=eb)
+
+
+@pytest.mark.parametrize("backend", ["device", "auto"])
+def test_device_encode_backends_build_the_codec(blobs, monkeypatch,
+                                                backend):
+    """"device" and "auto" encode on the given device through FrameCodec
+    (the reference's tunnel routing of "auto" is not ported)."""
+    data, out = blobs
+    cfg, _ = _configs(ResidualMode.MAX_ERROR, 0.25)
+    built = []
+    real = api.FrameCodec
+    monkeypatch.setattr(api, "FrameCodec",
+                        lambda *a, **k: built.append(1) or real(*a, **k))
+    monkeypatch.setattr(cpu_encoder, "compress", None)
+    blob = ebcc_tpu_torch.compress(
+        data, dataclasses.replace(cfg, encode_backend=backend), device="cpu")
+    assert built == [1]
+    assert blob == out[ResidualMode.MAX_ERROR][0]
+
+
+def test_cpu_encode_backend_needs_the_native_runtime(monkeypatch):
+    def missing():
+        raise RuntimeError("native runtime build failed")
+
+    monkeypatch.setattr(native, "lib", missing)
+    cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.5,
+                     encode_backend="cpu")
+    with pytest.raises(RuntimeError, match="encode_backend='cpu' needs"):
+        ebcc_tpu_torch.compress(_data(1), cfg, device="cpu")
 
 
 def test_config_round_trips_from_jax():

@@ -44,18 +44,97 @@ def _field(n, h=H, w=W, seed=0):
                      .astype(np.float32) for _ in range(n)])
 
 
-def test_level0_counts_kernel_matches_plain(card):
-    rng = np.random.default_rng(1)
-    for h, w, g, j, p in [(768, 1472, 6, 8, 22), (736, 1440, 4, 8, 14),
-                          (96, 160, 4, 8, 14)]:
-        spec = bp.CoderSpec(height=h, width=w, group_levels=g, nplanes=p,
+# K2 at the codec paths' shapes (base, resid; B = 3, 16 and 1), at 96x160
+# with 8 stripes (a stripe is smaller than one CTA's share), at widths
+# whose rows are not a multiple of 4 values (a scalar head and tail), on a
+# field of -1 only (every value in one bin), on values above P - 1, and
+# on a stripe of 4096 x 16386 values, 99 % of them -1: each thread bins
+# more than 65,535 values into one bin, so the kernel must flush its
+# 16-bit columns in rounds
+L0_CASES = [
+    pytest.param((3, 768, 1472), 8, 22, "analyze", id="base-3"),
+    pytest.param((3, 736, 1440), 8, 14, "analyze", id="resid-3"),
+    pytest.param((16, 768, 1472), 8, 22, "analyze", id="base-16"),
+    pytest.param((16, 736, 1440), 8, 14, "analyze", id="resid-16"),
+    pytest.param((1, 768, 1472), 8, 22, "analyze", id="base-1"),
+    pytest.param((3, 96, 160), 8, 14, "analyze", id="96x160"),
+    pytest.param((2, 96, 166), 8, 14, "random", id="96x166"),
+    pytest.param((2, 64, 10), 4, 9, "random", id="64x10"),
+    pytest.param((4, 768, 1472), 8, 22, "minus_one", id="all-minus-one"),
+    pytest.param((4, 736, 1440), 8, 14, "above_p", id="above-p"),
+    pytest.param((1, 8 * 4096, 16386), 8, 4, "sparse", id="long-stripe"),
+]
+
+
+def _level0_inputs(dev, shape, j, p, kind):
+    """(msb, smax1) int32 of ``kind``: the analysis of random coefficients
+    (every third row 0), uniform values in [-1, P - 1], all -1, values in
+    [-1, P + 5], or (made on the card) -1 but for 1 % in [-1, P]."""
+    b, hp, wp = shape
+    if kind == "sparse":
+        g = torch.Generator(device=dev).manual_seed(hp + wp + p)
+
+        def field(shape):
+            v = torch.randint(-1, p + 1, shape, generator=g, device=dev,
+                              dtype=torch.int32)
+            rare = torch.rand(shape, generator=g, device=dev) < 0.01
+            return torch.where(rare, v, torch.full_like(v, -1))
+
+        return field((b, hp, wp)), field((b, hp // 2, wp // 2))
+    rng = np.random.default_rng(hp + wp + p)
+    if kind == "analyze":
+        spec = bp.CoderSpec(height=hp, width=wp, group_levels=1, nplanes=p,
                             nchunks=j)
-        coefs = rng.integers(-(1 << 18), 1 << 18, (3, h, w)).astype(np.int32)
+        coefs = rng.integers(-(1 << 18), 1 << 18, (b, hp, wp)).astype(
+            np.int32)
         coefs[:, ::3] = 0
-        an = bp.analyze(torch.from_numpy(coefs).to(card), spec)
-        out = l0.level0_counts(an.msb, an.smax[1], p, j)
-        assert torch.equal(out, l0.level0_counts_ref(an.msb, an.smax[1], p,
-                                                     j))
+        an = bp.analyze(torch.from_numpy(coefs).to(dev), spec)
+        return an.msb, an.smax[1]
+    hi = {"random": p, "minus_one": 0, "above_p": p + 6}[kind]
+    msb = rng.integers(-1, hi, (b, hp, wp)).astype(np.int32)
+    smax1 = rng.integers(-1, hi, (b, hp // 2, wp // 2)).astype(np.int32)
+    return (torch.from_numpy(msb).to(dev), torch.from_numpy(smax1).to(dev))
+
+
+@pytest.mark.parametrize("shape,j,p,kind", L0_CASES)
+def test_level0_counts_kernel_matches_plain(card, shape, j, p, kind):
+    """K2 integer-equal to its plain version, one launch a call."""
+    msb, smax1 = _level0_inputs(card, shape, j, p, kind)
+    before = l0.KERNEL.launches
+    out = l0.level0_counts(msb, smax1, p, j)
+    assert l0.KERNEL.launches == before + 1
+    assert torch.equal(out, l0.level0_counts_ref(msb, smax1, p, j))
+
+
+def test_level0_counts_kernel_unaligned(card):
+    """msb and smax[1] 4 bytes past a 16-byte boundary: each stripe takes
+    a scalar head and tail around its 16-byte body."""
+    msb, smax1 = _level0_inputs(card, (3, 96, 160), 8, 14, "random")
+    flat_m = torch.empty(1 + msb.numel(), dtype=torch.int32, device=card)
+    flat_s = torch.empty(1 + smax1.numel(), dtype=torch.int32, device=card)
+    m = flat_m[1:].view(msb.shape)
+    q = flat_s[1:].view(smax1.shape)
+    m.copy_(msb)
+    q.copy_(smax1)
+    assert m.data_ptr() % 16 == 4 and q.data_ptr() % 16 == 4
+    assert torch.equal(l0.level0_counts(m, q, 14, 8),
+                       l0.level0_counts_ref(msb, smax1, 14, 8))
+
+
+def test_level0_counts_allocates_only_its_output(card):
+    """K2 keeps its histograms in shared memory: a call allocates its
+    output and nothing else on the device, at any moment of the call."""
+    msb, smax1 = _level0_inputs(card, (4, 768, 1472), 8, 22, "random")
+    l0.level0_counts(msb, smax1, 22, 8)  # build and load first
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    out = l0.level0_counts(msb, smax1, 22, 8)
+    torch.cuda.synchronize()
+    # the caching allocator rounds a block up to 512 bytes
+    nbytes = -(-out.nbytes // 512) * 512
+    assert torch.cuda.memory_allocated(card) - before == nbytes
+    assert torch.cuda.max_memory_allocated(card) - before == nbytes
 
 
 def _layers(dev, pointwise=False):
@@ -208,15 +287,16 @@ def test_idwt_rejects_bad_tensors(card):
         idwt.idwt2d_multi_cuda(torch.zeros((1, 90, 160), device=card), 3)
 
 
-# every probe at the probes' frame, B = 1 and 16; k2 and k3 also at the
-# edges of their designs: a ragged last tile with W % 4 == 2, one 2x2
-# frame, a tile and a row and a column more; k2 at W = 32768, wider than
-# a row of lifting.cuh's kRowSmem
+# every probe at the probes' frame, B = 1 and 16; k1, k2 and k3 also at
+# the edges of their designs: a ragged last tile or quad with W % 4 == 2,
+# one 2x2 frame, a tile and a row and a column more; k2 at W = 32768,
+# wider than a row of lifting.cuh's kRowSmem
 PROBE_CASES = (
     [pytest.param(name, (batch, 768, 1472), id=f"{name}-{batch}")
      for batch in (1, 16) for name in ip.PLAIN] +
     [pytest.param(name, shape, id=f"{name}-" + "x".join(map(str, shape)))
-     for name in ("probe_lane_interleave", "probe_transpose")
+     for name in ("probe_lane_interleave", "probe_transpose",
+                  "probe_row_interleave")
      for shape in ((3, 770, 1474), (1, 2, 2), (2, 66, 130))] +
     [pytest.param("probe_lane_interleave", (1, 4, 32768),
                   id="probe_lane_interleave-1x4x32768")])
@@ -234,7 +314,8 @@ def test_idwt_probe_kernel_matches_plain(card, name, shape):
     assert torch.equal(out, ip.PLAIN[name](x))
 
 
-@pytest.mark.parametrize("name", ["probe_lane_interleave", "probe_transpose"])
+@pytest.mark.parametrize("name", ["probe_lane_interleave", "probe_transpose",
+                                  "probe_row_interleave"])
 def test_idwt_probe_kernel_unaligned(card, name):
     """A tensor 8 bytes past a 16-byte boundary takes the scalar form of
     the same kernel, bit-equal."""

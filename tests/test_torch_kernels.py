@@ -85,6 +85,8 @@ def test_level0_supported_gate():
     assert not l0.level0_supported(36, 64, 2, 8)   # uneven stripes
     assert not l0.level0_supported(40, 64, 2, 8)   # odd half-stripes
     assert not l0.level0_supported(64, 64, 0, 8)   # no quadtree
+    # a stripe of any length (the kernel bins in rounds)
+    assert l0.level0_supported(8 * 4096, 16386, 2, 8)
 
 
 @pytest.mark.parametrize("kernel", [l0.KERNEL, fe.KERNEL, idwt.KERNEL],
@@ -108,6 +110,22 @@ def test_kernel_build_keyed_on_every_included_header(kernel, tmp_path):
                                    cuda.NVCC_FLAGS)
         assert new_key != key
         key = new_key
+
+
+def test_level0_entry_signature_has_no_hist():
+    """The C entry of K2 is (device, msb, smax1, B, hp, wp, P, J, out,
+    stream): one launch with its histograms in shared memory, no ``hist``
+    scratch in its signature or its argtypes."""
+    src = open(l0.KERNEL.source).read()
+    head = "int ebcc_level0_counts("
+    assert src.count(head) == 1
+    sig = src[src.index(head):src.index(")", src.index(head))]
+    assert "hist" not in sig
+    assert [a.split()[-1].lstrip("*") for a in sig[len(head):].split(",")] \
+        == ["device", "msb", "smax1", "B", "hp", "wp", "P", "J", "out",
+            "stream"]
+    assert len(l0.KERNEL.argtypes) == 10
+    assert "cudaMemsetAsync" not in src
 
 
 @pytest.mark.parametrize("hp,wp,levels", [(768, 1472, 5), (736, 1440, 3),

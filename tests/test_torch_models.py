@@ -2,7 +2,8 @@
 
 * every exact-value patch method round-trips;
 * blobs cross between the two packages both ways with no point past its
-  bound, and are byte-identical where no frame keeps a residual layer;
+  bound, those of either decode backend, and are byte-identical where no
+  frame keeps a residual layer;
 * the blob records the decoder its patch was built against (1 = native
   CPU decoder, the pinned default; 2 = the device reconstruction);
 * ``rate_candidates`` (multi-q) is not implemented and says so.
@@ -110,6 +111,38 @@ def test_blobs_cross_between_packages(blobs):
         assert out.shape == data.shape
         assert int(np.sum(np.abs(out - data) > eb)) == 0
     np.testing.assert_array_equal(port_dc.decompress(ours), rec)
+    assert int(np.sum(eb < 1e-5)) == 7  # the patch is exercised
+
+
+@pytest.fixture(scope="module")
+def device_blobs():
+    """Blobs whose patch was built against the device reconstruction
+    (backend code 2), one from each package: (data, bound, port blob,
+    JAX blob)."""
+    data, eb = _data(), _bound((B, H, W))
+    ours = DirectCompressor(config=dataclasses.replace(
+        CFG, decode_backend="device"), device="cpu").compress(data, eb)
+    theirs = JaxDirect(config=dataclasses.replace(
+        JAX_CFG, decode_backend="device")).compress(data, eb)
+    return data, eb, ours, theirs
+
+
+@pytest.mark.parametrize("direction", ["port_to_jax", "jax_to_port"])
+def test_device_backend_blobs_cross_between_packages(device_blobs,
+                                                     direction):
+    """A code-2 blob decodes in the other package, through that package's
+    own device reconstruction, with no point past its bound.  The two
+    reconstructions are not bit-equal (the port's follows the native
+    decoder's fma sites, JAX's follows XLA's fusion), so the patch of one
+    is held against the other's reconstruction here."""
+    data, eb, ours, theirs = device_blobs
+    assert _backend(ours) == 2 and _backend(theirs) == 2
+    if direction == "port_to_jax":
+        out = JaxDirect(config=JAX_CFG).decompress(ours)
+    else:
+        out = DirectCompressor(config=CFG, device="cpu").decompress(theirs)
+    assert out.shape == data.shape
+    assert int(np.sum(np.abs(out - data) > eb)) == 0
     assert int(np.sum(eb < 1e-5)) == 7  # the patch is exercised
 
 
