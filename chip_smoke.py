@@ -16,6 +16,14 @@ bench.py):
   (a synthetic 0.5-degree ensemble spread upsampled to 721x1440 by
   ``dataprep.upsample_3t_2s``), then ``DirectCompressor`` over the same
   frames as two slices of 16;
+* NONE and SPARSIFICATION_FACTOR (base_cr 100, residual_cr 10), the union
+  chunk-mask rule (MAX_ERROR 0.5, pure-base fallback off, base quantile
+  1e-3) and ``compress_multi_q`` at quantiles (0, 1e-6, 1e-3), each held
+  frame by frame against the native encoder; then
+  ``DirectCompressor(rate_candidates=(1e-6, 1e-3))`` on the two pointwise
+  slices, ``RateOptimizedCompressor`` on 16 frames, and a
+  ``DeltaCompressor`` and a ``PredictiveCompressor`` chain of 4 frames
+  (each path's launches counted on its own);
 
 and the probe path, ``python -m ebcc_tpu_torch.scripts.idwt_probe`` at
 [1, 768, 1472] and [16, 768, 1472]: the five primitive probes of
@@ -214,6 +222,7 @@ def direct_patch_count(blob: bytes) -> int:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     print("torch", torch.__version__, "cuda", torch.version.cuda)
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: nothing to smoke-test")
@@ -221,7 +230,9 @@ def main() -> int:
     print(card)
 
     import ebcc_tpu_torch
-    from ebcc_tpu_torch import (DirectCompressor, EBCCConfig, ResidualMode,
+    from ebcc_tpu_torch import (DeltaCompressor, DirectCompressor,
+                                EBCCConfig, PredictiveCompressor,
+                                RateOptimizedCompressor, ResidualMode,
                                 dataprep)
     from ebcc_tpu_torch.api import (_device_batch, _scale_u16_host,
                                     _upload_u16, pointwise_targets)
@@ -737,6 +748,207 @@ def main() -> int:
                                  "two decode backends differ")
     print("the two backends' reconstructions are bit-identical")
 
+    def drive(label, fn, expect=kernels):
+        """One run of a path: every count set to 0 just before ``fn()``
+        and read just after; fails unless each kernel of ``expect`` (the
+        codec's K2, K1 and idwt by default) launched in it.  Returns
+        (fn's result, counts, wall s)."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        print(f"launches in the {label} path:",
+              {k.name: counts[k.name] for k in kernels},
+              f"(wall {wall:.3f} s)")
+        missing = [k.name for k in expect if counts[k.name] == 0]
+        if missing:
+            raise AssertionError(f"{missing} never launched in the {label} "
+                                 "path")
+        return out, counts, wall
+
+    def same_as_native(ours_blob, native_blob, label):
+        """Fails unless every frame equals the native encoder's."""
+        ours, theirs = (container.unpack_blob(b) for b in (ours_blob,
+                                                            native_blob))
+        same = sum(a_ == b_ for a_, b_ in zip(ours, theirs))
+        print(f"{label}: byte-identical frames vs the native encoder: "
+              f"{same}/{len(theirs)}")
+        if same != len(theirs) or len(ours) != len(theirs):
+            raise AssertionError(f"{label}: frames differ from the native "
+                                 "encoder's")
+
+    def both_decoders(blob_, ref, bound_, label):
+        """The cuda decode bit-equal to the native decoder's, and (where
+        ``bound_`` is given) no point past it through either."""
+        recs = {"port cuda decoder": ebcc_tpu_torch.decompress(
+                    blob_, device="cuda"),
+                "native decoder": cpu_decoder.decompress(blob_)}
+        for name, r in recs.items():
+            if r.shape != ref.shape or not np.isfinite(r).all():
+                raise AssertionError(f"{label}: bad reconstruction")
+        ndiff = int(np.sum(recs["port cuda decoder"].view(np.uint32) !=
+                           recs["native decoder"].view(np.uint32)))
+        if ndiff:
+            raise AssertionError(f"{label}: the cuda decode differs from "
+                                 f"the native one at {ndiff} points")
+        err_ = float(np.abs(recs["native decoder"] - ref).max())
+        if bound_ is None:
+            print(f"{label}: cuda decode bit-equal to the native decoder; "
+                  f"max error {err_!r}")
+            return
+        nviol = {name: int(np.sum(np.abs(r - ref) > bound_))
+                 for name, r in recs.items()}
+        print(f"{label}: cuda decode bit-equal to the native decoder; "
+              f"points past the bound {nviol}; max error {err_!r}")
+        if any(nviol.values()):
+            raise AssertionError(f"{label}: bound violated")
+
+    def frames_with(blob_, flag):
+        return sum(bool(container.unpack_frame(f)[0].flags & flag)
+                   for f in container.unpack_blob(blob_))
+
+    phase(f"rate-targeted NONE and SPARSIFICATION_FACTOR on cuda "
+          f"({N_FRAMES} frames, base_cr 100, residual_cr 10)")
+    launches_rate = dict.fromkeys(read_counts(), 0)
+    rate_walls = {}
+    for mode in (ResidualMode.NONE, ResidualMode.SPARSIFICATION_FACTOR):
+        rcfg = EBCCConfig(mode=mode, base_cr=100, residual_cr=10,
+                          max_batch=BATCH)
+        # no error criterion: no candidate evaluation (K1)
+        rate_blob, counts, rate_walls[mode.name] = drive(
+            mode.name, lambda: ebcc_tpu_torch.compress(data, rcfg,
+                                                       device="cuda"),
+            (l0.KERNEL, idwt.KERNEL))
+        if counts[fe.KERNEL.name]:
+            raise AssertionError(f"{mode.name} launched K1")
+        for k, v in counts.items():
+            launches_rate[k] += v
+        same_as_native(rate_blob, cpu_encoder.compress(data, rcfg),
+                       mode.name)
+        both_decoders(rate_blob, data, None, mode.name)
+        print(f"{mode.name}: CR {data.nbytes / len(rate_blob):.2f}; frames "
+              f"keeping a residual "
+              f"{frames_with(rate_blob, container.FLAG_RESID)}; encode wall "
+              f"{rate_walls[mode.name]:.3f} s {tag}")
+
+    phase(f"mask_search='union' on cuda ({N_FRAMES} frames, MAX_ERROR "
+          f"{ERROR}, pure-base fallback off, base quantile 1e-3)")
+    ucfg = dataclasses.replace(cfg, mask_search="union")
+    os.environ["EBCC_DISABLE_PURE_JP2_FALLBACK"] = "1"
+    try:
+        ublob, launches_union, t_union = drive(
+            "union", lambda: ebcc_tpu_torch.compress(data, ucfg,
+                                                     device="cuda",
+                                                     qbase=1e-3))
+        unative = cpu_encoder.compress(data, ucfg, qbase=1e-3)
+    finally:
+        del os.environ["EBCC_DISABLE_PURE_JP2_FALLBACK"]
+    same_as_native(ublob, unative, "union")
+    both_decoders(ublob, data, ERROR, "union")
+    hdrs = [container.unpack_frame(f)[0] for f in container.unpack_blob(ublob)]
+    print(f"union: frames with a base mask "
+          f"{sum(h.base_mask_plane != container.MASK_NONE for h in hdrs)}, "
+          f"a residual mask "
+          f"{sum(h.resid_mask_plane != container.MASK_NONE for h in hdrs)}, "
+          f"a residual {frames_with(ublob, container.FLAG_RESID)}; encode "
+          f"wall {t_union:.3f} s {tag}")
+
+    qs = (0.0, 1e-6, 1e-3)
+    phase(f"compress_multi_q on cuda ({N_FRAMES} frames, MAX_ERROR {ERROR}, "
+          f"qs {qs})")
+    mblobs, launches_multi, t_multi = drive(
+        "multi-q", lambda: ebcc_tpu_torch.compress_multi_q(data, qs, cfg,
+                                                           device="cuda"))
+    t_per_q = []
+    for q, mb in zip(qs, mblobs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single = ebcc_tpu_torch.compress(data, cfg, device="cuda", qbase=q)
+        t_per_q.append(time.perf_counter() - t0)
+        if single != mb:
+            raise AssertionError(f"multi-q blob at q={q} differs from "
+                                 "compress(qbase=q)")
+        same_as_native(mb, cpu_encoder.compress(data, cfg, qbase=q),
+                       f"multi-q q={q}")
+        both_decoders(mb, data, ERROR, f"multi-q q={q}")
+        print(f"q={q}: equal to compress(qbase={q}); CR "
+              f"{data.nbytes / len(mb):.2f}; frames keeping a residual "
+              f"{frames_with(mb, container.FLAG_RESID)}")
+    print(f"multi-q encode wall {t_multi:.3f} s; the {len(qs)} compress "
+          f"walls {sum(t_per_q):.3f} s "
+          f"({', '.join(f'{t:.3f}' for t in t_per_q)}) {tag}")
+
+    rqs = (1e-6, 1e-3)
+    phase(f"DirectCompressor(rate_candidates={rqs}): compress_batch of 2 "
+          "slices x 16 pointwise frames, both decode backends")
+
+    def rate_candidates_run():
+        out = {}
+        for backend in ("cpu", "device"):
+            dcx = DirectCompressor(config=dataclasses.replace(
+                dc_.config, decode_backend=backend), rate_candidates=rqs)
+            out[backend] = (dcx, dcx.compress_batch(slices, eb_slices))
+        return out
+
+    rc_out, launches_rc, t_rc = drive("rate_candidates", rate_candidates_run)
+    for backend, (dcx, prs) in rc_out.items():
+        for i, (b, r) in enumerate(prs):
+            out = dcx.decompress(b)
+            nviol = int(np.sum(np.abs(out - slices[i]) > eb_slices[i]))
+            if not np.array_equal(out, r):
+                raise AssertionError("rate_candidates: the decode differs "
+                                     "from the compress-time reconstruction")
+            if nviol:
+                raise AssertionError(f"rate_candidates ({backend}): {nviol} "
+                                     "points past the bound")
+            print(f"decode backend {backend}, slice {i}: "
+                  f"{direct_patch_count(b)} points patched, 0 past the "
+                  f"bound")
+        size = sum(len(b) for b, _ in prs)
+        print(f"decode backend {backend}: CR including the patch "
+              f"{slices.nbytes / size:.2f}")
+    size_rc = sum(len(b) for b, _ in rc_out["cpu"][1])
+    if size_rc > sum(len(b) for b, _ in pairs):
+        raise AssertionError("rate_candidates grew the blobs past the "
+                             "default quantile's")
+    print(f"wall (both backends) {t_rc:.3f} s {tag}")
+
+    phase(f"RateOptimizedCompressor on {BATCH} frames (MAX_ERROR {ERROR}, "
+          "the default candidates)")
+    ro = RateOptimizedCompressor(cfg)
+    (ro_blob, info), launches_ro, t_ro = drive(
+        "rate-optimiser", lambda: ro.compress(data[:BATCH]))
+    if len(ro_blob) != min(info["candidate_sizes"].values()):
+        raise AssertionError("the rate optimiser's blob is not the smallest")
+    both_decoders(ro_blob, data[:BATCH], ERROR, "rate-optimiser")
+    print(f"best quantile {info['best_quantile']}, CR {info['cr']:.2f}; "
+          f"candidate sizes {info['candidate_sizes']}; wall {t_ro:.3f} s "
+          f"{tag}")
+
+    n_chain = 4
+    phase(f"DeltaCompressor and PredictiveCompressor on a {n_chain}-slice "
+          f"chain of {H}x{W} frames (cut from the 37 levels of an ERA5 "
+          "pressure-level stack to keep the run short)")
+    chain, eb_chain = data[:n_chain], eb[:n_chain]
+
+    def chain_run():
+        delta, pred = DeltaCompressor(base_cr=100), PredictiveCompressor(
+            base_cr=100)
+        return ((delta, delta.compress(chain, eb_chain)),
+                (pred, pred.compress(chain, eb_chain)))
+
+    chain_out, launches_chain, t_chain = drive("delta/predictive", chain_run)
+    for (comp, b) in chain_out:
+        out = comp.decompress(b)
+        nviol = int(np.sum(np.abs(out - chain) > eb_chain))
+        print(f"{type(comp).__name__}: CR {chain.nbytes / len(b):.2f}, "
+              f"{nviol} points past the bound")
+        if out.shape != chain.shape or nviol:
+            raise AssertionError(f"{type(comp).__name__}: bound violated")
+    print(f"wall (both chains) {t_chain:.3f} s {tag}")
+
     phase(f"timings {tag}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -851,6 +1063,14 @@ def main() -> int:
                   f"{100 * bms / k2_device[var]:.1f}% of the bound {tag}")
     print(f"device-only recon_packed (MAX_ERROR blob) {recon_ms:.3f} ms")
 
+    def new_paths(name):
+        return {"launches_rate_path": launches_rate[name],
+                "launches_union_path": launches_union[name],
+                "launches_multi_q_path": launches_multi[name],
+                "launches_rate_candidates_path": launches_rc[name],
+                "launches_rate_opt_path": launches_ro[name],
+                "launches_chain_path": launches_chain[name]}
+
     def entry(name, source, replaces, err, key, bnd):
         return {"name": name, "route": "cuda",
                 "source": f"ebcc_tpu_torch/csrc/{source}",
@@ -858,6 +1078,7 @@ def main() -> int:
                 "launches": launches_pw[name],
                 "launches_max_error_path": launches_max[name],
                 "launches_probe_path": launches_probe[name],
+                **new_paths(name),
                 "max_abs_err": err, "ms": times[key][0],
                 "plain_ms": times[key][1], "bound_ms": bnd[0],
                 "bound_by": bnd[1], "library_ms": None}
@@ -879,6 +1100,7 @@ def main() -> int:
                 "launches": launches_probe[name],
                 "launches_max_error_path": launches_max[name],
                 "launches_pointwise_path": launches_pw[name],
+                **new_paths(name),
                 "max_abs_err": probe_err[name], "ms": ms,
                 "gb_per_s": 8 * BATCH * 768 * 1472 / ms * 1e-6,
                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
@@ -906,6 +1128,8 @@ def main() -> int:
                    idwt_err, idwt_key, idwt_bound),
              also_replaces="scripts/pallas_idwt_probe.py:122"),
     ] + [probe_entry(name) for name in ip.PLAIN]}
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
+          f"included {tag}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -32,14 +32,26 @@ class ResidualMode(enum.IntEnum):
     POINTWISE_MAX_ERROR = 5
 
 
+# canonical mode-name vocabulary (the JAX package's CLI and HDF5 wrapper
+# name modes by these keys)
+MODE_NAMES = {
+    "none": ResidualMode.NONE,
+    "sparsification_factor": ResidualMode.SPARSIFICATION_FACTOR,
+    "max_error": ResidualMode.MAX_ERROR,
+    "relative_error": ResidualMode.RELATIVE_ERROR,
+    "pointwise_max_error": ResidualMode.POINTWISE_MAX_ERROR,
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class EBCCConfig:
     """User-facing codec configuration (same fields as the JAX package).
 
-    This package encodes the error-bounded modes (MAX_ERROR,
-    RELATIVE_ERROR, POINTWISE_MAX_ERROR) with the greedy chunk-mask rule;
-    the other modes and ``mask_search="union"`` are rejected by
-    :func:`ebcc_tpu_torch.compress`.  ``decode_backend`` chooses the
+    Every mode but the deprecated QUANTILE encodes: the error-bounded
+    ones (MAX_ERROR, RELATIVE_ERROR, POINTWISE_MAX_ERROR) under either
+    chunk-mask rule (``mask_search`` "greedy" or "union"), and the
+    rate-targeted NONE and SPARSIFICATION_FACTOR (``base_cr`` and
+    ``residual_cr`` budgets, no chunk masks).  ``decode_backend`` chooses the
     decoder (:func:`ebcc_tpu_torch.decompress`: "cpu" is the native CPU
     decoder, "device" and "auto" the reconstruction on the caller's
     device); ``encode_backend`` the encoder (:func:`ebcc_tpu_torch.compress`:

@@ -51,7 +51,10 @@ class DirectCompressor:
     """Array-in/bytes-out pointwise compressor with hard bound guarantee.
 
     ``base_cr`` seeds the base layer rate; ``ratio`` scales the user bound
-    before enforcement.  ``device``: where the encode and a
+    before enforcement.  ``rate_candidates``: base quantiles to sweep per
+    slice (one :func:`..api.compress_multi_q` encode); each slice keeps
+    the candidate whose total size, core stream plus exact-value patch,
+    is smallest.  ``device``: where the encode and a
     ``decode_backend="device"`` reconstruction run ("cuda" or "cpu").
     ``decode_backend="auto"`` is pinned to "cpu": the patch is built
     against the native decoder, whose reconstruction is the same on every
@@ -61,10 +64,8 @@ class DirectCompressor:
     def __init__(self, base_cr: float = 100.0, ratio: float = 1.0,
                  config: EBCCConfig | None = None, rate_candidates=None,
                  device="cuda"):
-        if rate_candidates:
-            raise NotImplementedError(
-                "rate_candidates needs compress_multi_q, which "
-                "ebcc_tpu_torch does not implement")
+        self.rate_candidates = (tuple(float(q) for q in rate_candidates)
+                                if rate_candidates else None)
         self.ratio = float(ratio)
         self.device = device
         self.config = config or EBCCConfig(
@@ -265,6 +266,8 @@ class DirectCompressor:
         data = np.asarray(data, np.float32)
         eb = np.broadcast_to(np.asarray(error_bound, np.float32),
                              data.shape).copy()
+        if self.rate_candidates:
+            return self.compress_batch(data[None], eb[None])[0]
         if np.any(eb <= 0):
             raise ValueError("error_bound must be positive everywhere")
         blob = api.compress(data, self.config, error_bound=eb,
@@ -279,7 +282,8 @@ class DirectCompressor:
         ``datas``/``error_bounds``: [L, ..., H, W].  Returns a list of
         L ``(blob, rec)`` pairs, each identical to what
         :meth:`compress_with_rec` returns for that slice, from one
-        ``api.compress`` over all L * frames frames and one decode."""
+        ``api.compress`` (``api.compress_multi_q`` under
+        ``rate_candidates``) over all L * frames frames and one decode."""
         datas = np.asarray(datas, np.float32)
         ebs = np.broadcast_to(
             np.asarray(error_bounds, np.float32), datas.shape).copy()
@@ -287,15 +291,28 @@ class DirectCompressor:
             raise ValueError("error_bound must be positive everywhere")
         nslices = datas.shape[0]
         fps = int(np.prod(datas.shape[1:-2], dtype=np.int64))  # frames/slice
-        blob_all = api.compress(datas, self.config, error_bound=ebs,
-                                device=self.device)
-        rec_all = api.decompress(blob_all, self.config,
-                                 device=self.device).reshape(datas.shape)
-        frames = container.unpack_blob(blob_all)
+        qs = self.rate_candidates
+        if qs:
+            blobs = api.compress_multi_q(datas, qs, self.config,
+                                         error_bound=ebs, device=self.device)
+        else:
+            blobs = [api.compress(datas, self.config, error_bound=ebs,
+                                  device=self.device)]
+        frames = [container.unpack_blob(b) for b in blobs]
+        # one decode reconstructs every candidate
+        rec_all = api.decompress(
+            container.pack_blob([f for fq in frames for f in fq]),
+            self.config, device=self.device).reshape(
+                (len(blobs),) + datas.shape)
         out = []
         for i in range(nslices):
-            sub = container.pack_blob(frames[i * fps:(i + 1) * fps])
-            out.append(self._assemble(datas[i], ebs[i], sub, rec_all[i]))
+            # per slice, the smallest total: core stream plus patch
+            out.append(min(
+                (self._assemble(datas[i], ebs[i],
+                                container.pack_blob(fq[i * fps:(i + 1) * fps]),
+                                rec_all[k, i])
+                 for k, fq in enumerate(frames)),
+                key=lambda pair: len(pair[0])))
         return out
 
     def decompress(self, blob: bytes) -> np.ndarray:

@@ -10,7 +10,7 @@ the native CPU codec.
   identity, the bound through every decoder, the pointwise flag;
 * ``decode_backend`` routes the decode, ``encode_backend`` the encode;
 * configurations cross; the package imports without JAX; asking for CUDA
-  without it raises.
+  without it raises; what is still refused raises.
 """
 
 import dataclasses
@@ -22,11 +22,12 @@ import pytest
 import torch
 
 import ebcc_tpu
+from ebcc_tpu.codec import config as jax_config
 
 import ebcc_tpu_torch
 from ebcc_tpu_torch import api
 from ebcc_tpu_torch.codec import container
-from ebcc_tpu_torch.codec.config import EBCCConfig, ResidualMode
+from ebcc_tpu_torch.codec.config import MODE_NAMES, EBCCConfig, ResidualMode
 from ebcc_tpu_torch.runtime import cpu_decoder, cpu_encoder
 from ebcc_tpu_torch.runtime import native
 
@@ -327,6 +328,8 @@ def test_config_round_trips_from_jax():
         [f.name for f in dataclasses.fields(jcfg)]
     assert {m.name: int(m) for m in ResidualMode} == \
         {m.name: int(m) for m in ebcc_tpu.ResidualMode}
+    assert {k: int(v) for k, v in MODE_NAMES.items()} == \
+        {k: int(v) for k, v in jax_config.MODE_NAMES.items()}
 
 
 def test_imports_without_jax():
@@ -352,12 +355,19 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
 
 
 def test_unsupported_modes_raise():
+    """What is still refused: the deprecated QUANTILE mode, a mask rule
+    other than "greedy" and "union", and ``compress_multi_q`` in a
+    rate-targeted mode."""
     data = _data(1)
-    for cfg in (EBCCConfig(mode=ResidualMode.NONE),
-                EBCCConfig(mode=ResidualMode.SPARSIFICATION_FACTOR),
-                EBCCConfig(error=0.5, mask_search="union")):
-        with pytest.raises(ValueError):
-            api.compress(data, cfg, device="cpu")
+    with pytest.raises(ValueError, match="QUANTILE"):
+        EBCCConfig(mode=ResidualMode.QUANTILE)
+    with pytest.raises(ValueError, match="mask_search"):
+        api.compress(data, EBCCConfig(error=0.5, mask_search="best"),
+                     device="cpu")
+    for mode in (ResidualMode.NONE, ResidualMode.SPARSIFICATION_FACTOR):
+        with pytest.raises(ValueError, match="error-bounded"):
+            api.compress_multi_q(data, (0.0, 1e-3), EBCCConfig(mode=mode),
+                                 device="cpu")
 
 
 def test_pointwise_without_bound_raises():

@@ -367,3 +367,35 @@ def test_cuda_compress_matches_cpu_and_native(card):
         rec = ebcc_tpu_torch.decompress(blob, cfg, device="cuda")
         np.testing.assert_array_equal(
             rec, ebcc_tpu_torch.decompress(blob, cfg, device="cpu"))
+
+
+def test_cuda_rate_modes_match_cpu_and_native(card):
+    data = _field(5, seed=6)
+    for mode in (ResidualMode.NONE, ResidualMode.SPARSIFICATION_FACTOR):
+        cfg = EBCCConfig(mode=mode, base_cr=45, residual_cr=10, max_batch=2)
+        blob = ebcc_tpu_torch.compress(data, cfg, device="cuda")
+        assert blob == ebcc_tpu_torch.compress(data, cfg, device="cpu")
+        assert blob == cpu_encoder.compress(data, cfg)
+        rec = ebcc_tpu_torch.decompress(blob, cfg, device="cuda")
+        np.testing.assert_array_equal(rec, cpu_decoder.decompress(blob))
+
+
+def test_cuda_union_and_multi_q_match_native(card, monkeypatch):
+    """With the pure-base fallback off, so frames keep a residual and both
+    layers search masks: the union rule and every multi-q blob equal the
+    native encoder's, and the cuda decode holds the bound."""
+    monkeypatch.setenv("EBCC_DISABLE_PURE_JP2_FALLBACK", "1")
+    data = _field(5, seed=7)
+    cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.5, base_cr=100,
+                     max_batch=2)
+    union = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.5, base_cr=100,
+                       max_batch=2, mask_search="union")
+    blob = ebcc_tpu_torch.compress(data, union, device="cuda", qbase=1e-3)
+    assert blob == cpu_encoder.compress(data, union, qbase=1e-3)
+    qs = (0.0, 1e-6, 1e-3)
+    blobs = ebcc_tpu_torch.compress_multi_q(data, qs, cfg, device="cuda")
+    for q, b in zip(qs, blobs):
+        assert b == cpu_encoder.compress(data, cfg, qbase=q)
+    for b in blobs + [blob]:
+        rec = ebcc_tpu_torch.decompress(b, cfg, device="cuda")
+        assert np.abs(rec - data).max() <= 0.5

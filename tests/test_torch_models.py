@@ -1,12 +1,17 @@
-"""The port's DirectCompressor against the JAX package's, on the CPU.
+"""The port's compressor families against the JAX package's, on the CPU.
 
 * every exact-value patch method round-trips;
-* blobs cross between the two packages both ways with no point past its
-  bound, those of either decode backend, and are byte-identical where no
-  frame keeps a residual layer;
+* DirectCompressor blobs cross between the two packages both ways with no
+  point past its bound, those of either decode backend, and are
+  byte-identical where no frame keeps a residual layer;
 * the blob records the decoder its patch was built against (1 = native
   CPU decoder, the pinned default; 2 = the device reconstruction);
-* ``rate_candidates`` (multi-q) is not implemented and says so.
+* ``rate_candidates`` (per-slice multi-q): the decoder-exact
+  reconstruction, no larger than without candidates, blobs crossing both
+  ways;
+* RateOptimizedCompressor picks the JAX package's quantile;
+* DeltaCompressor and PredictiveCompressor blobs decode in the other
+  package within the bound.
 """
 
 import dataclasses
@@ -16,9 +21,11 @@ import numpy as np
 import pytest
 
 import ebcc_tpu
+from ebcc_tpu import models as jax_models
 from ebcc_tpu.models.direct import DirectCompressor as JaxDirect
 
-from ebcc_tpu_torch import DirectCompressor
+from ebcc_tpu_torch import (DeltaCompressor, DirectCompressor,
+                            PredictiveCompressor, RateOptimizedCompressor)
 from ebcc_tpu_torch.codec import container
 from ebcc_tpu_torch.codec.config import EBCCConfig
 from ebcc_tpu_torch.models.direct import _pack
@@ -155,8 +162,17 @@ def test_blobs_byte_identical_without_residual(blobs):
 
 
 def test_rate_candidates_not_implemented():
-    with pytest.raises(NotImplementedError, match="compress_multi_q"):
-        DirectCompressor(config=CFG, rate_candidates=(1e-6, 1e-2))
+    """``rate_candidates`` is implemented; what still raises is a
+    DeltaCompressor given both its own DirectCompressor and candidates
+    (they would be ignored), as in the JAX package."""
+    direct = DirectCompressor(config=CFG, device="cpu")
+    with pytest.raises(ValueError, match="rate_candidates"):
+        DeltaCompressor(direct=direct, rate_candidates=(1e-6, 1e-2))
+    with pytest.raises(ValueError, match="rate_candidates"):
+        jax_models.DeltaCompressor(direct=JaxDirect(config=JAX_CFG),
+                                   rate_candidates=(1e-6, 1e-2))
+    assert DirectCompressor(config=CFG, rate_candidates=(1e-6, 1e-2),
+                            device="cpu").rate_candidates == (1e-6, 1e-2)
 
 
 def test_backend_code_recorded(blobs):
@@ -187,3 +203,110 @@ def test_compress_batch_equals_per_slice(blobs):
         assert blob == one
         np.testing.assert_array_equal(rec, one_rec)
         np.testing.assert_array_equal(dc.decompress(blob), rec)
+
+
+QS = (1e-6, 1e-2)  # the default base quantile and a larger one
+
+
+@pytest.fixture(scope="module")
+def rate_blobs():
+    """(data, bound, port blob + rec, JAX blob) under ``QS``."""
+    data, eb = _data(1), _bound((B, H, W), seed=14)
+    ours, rec = DirectCompressor(config=CFG, rate_candidates=QS,
+                                 device="cpu").compress_with_rec(data, eb)
+    theirs = JaxDirect(config=JAX_CFG, rate_candidates=QS).compress(data, eb)
+    return data, eb, ours, rec, theirs
+
+
+def test_rate_candidates_rec_contract_and_size(rate_blobs):
+    """The reconstruction returned with the blob is the decoder's, and the
+    per-slice minimum is no larger than the encode at the default
+    quantile, which is among the candidates."""
+    data, eb, ours, rec, _ = rate_blobs
+    dc = DirectCompressor(config=CFG, rate_candidates=QS, device="cpu")
+    np.testing.assert_array_equal(dc.decompress(ours), rec)
+    assert int(np.sum(np.abs(rec - data) > eb)) == 0
+    plain = DirectCompressor(config=CFG, device="cpu").compress(data, eb)
+    assert len(ours) <= len(plain)
+    assert dc.compress_batch(data[None], eb[None])[0][0] == ours
+
+
+@pytest.mark.parametrize("direction", ["port_to_jax", "jax_to_port"])
+def test_rate_candidates_blobs_cross_between_packages(rate_blobs,
+                                                      direction):
+    data, eb, ours, rec, theirs = rate_blobs
+    if direction == "port_to_jax":
+        out = JaxDirect(config=JAX_CFG).decompress(ours)
+        np.testing.assert_array_equal(out, rec)
+    else:
+        out = DirectCompressor(config=CFG, device="cpu").decompress(theirs)
+    assert out.shape == data.shape
+    assert int(np.sum(np.abs(out - data) > eb)) == 0
+
+
+def test_rate_optimizer_best_quantile_matches_jax():
+    """MAX_ERROR frames that keep no residual under any candidate: the
+    blobs are the JAX package's, and so is the choice."""
+    jcfg = dataclasses.replace(JAX_CFG, mode=ebcc_tpu.ResidualMode.MAX_ERROR,
+                               error=0.25)
+    cfg = EBCCConfig(**dataclasses.asdict(jcfg))
+    qs = (0.0, 1e-6)
+    data = _data()
+    blob, info = RateOptimizedCompressor(cfg, candidates=qs,
+                                         device="cpu").compress(data)
+    jblob, jinfo = jax_models.RateOptimizedCompressor(
+        jcfg, candidates=qs).compress(data)
+    assert not any(container.unpack_frame(f)[0].flags & container.FLAG_RESID
+                   for f in container.unpack_blob(blob))
+    assert info == jinfo and blob == jblob
+    assert info["candidate_sizes"][info["best_quantile"]] == len(blob)
+    rec = RateOptimizedCompressor(cfg, device="cpu").decompress(blob)
+    assert np.abs(rec - data).max() <= 0.25
+
+
+def _chain(n=3):
+    """n chain slices [n, B, H, W]: one field with small per-slice
+    noise, so the delta coding of a slice can win."""
+    rng = np.random.default_rng(21)
+    base = _data()
+    return np.stack([base + rng.normal(0, 0.03, base.shape).astype(
+        np.float32) for _ in range(n)])
+
+
+def _chain_flags(blob):
+    """The per-slice delta flags of an EBTC blob."""
+    magic, n = struct.unpack_from("<4sI", blob, 0)
+    assert magic == b"EBTC"
+    off, flags = struct.calcsize("<4sI"), []
+    for _ in range(n):
+        d, blen = struct.unpack_from("<BQ", blob, off)
+        off += struct.calcsize("<BQ") + blen
+        flags.append(bool(d))
+    return flags
+
+
+@pytest.mark.parametrize("family", ["delta", "predictive"])
+def test_chain_blobs_cross_between_packages(family):
+    """A DeltaCompressor / PredictiveCompressor blob of either package
+    decodes in the other within the bound; both decode through the native
+    decoder, so their reconstructions agree bit for bit."""
+    stack = _chain()
+    eb = np.full_like(stack, 0.3)
+    ours_direct = DirectCompressor(config=CFG, device="cpu")
+    theirs_direct = JaxDirect(config=JAX_CFG)
+    if family == "delta":
+        port = DeltaCompressor(direct=ours_direct)
+        jax = jax_models.DeltaCompressor(direct=theirs_direct)
+    else:
+        port = PredictiveCompressor(warmup=1, direct=ours_direct)
+        jax = jax_models.PredictiveCompressor(warmup=1, direct=theirs_direct)
+    ours, theirs = port.compress(stack, eb), jax.compress(stack, eb)
+    if family == "delta":
+        assert any(_chain_flags(ours)[1:])
+    recs = [jax.decompress(ours), port.decompress(ours),
+            port.decompress(theirs), jax.decompress(theirs)]
+    for rec in recs:
+        assert rec.shape == stack.shape
+        assert int(np.sum(np.abs(rec - stack) > eb)) == 0
+    np.testing.assert_array_equal(recs[0], recs[1])
+    np.testing.assert_array_equal(recs[2], recs[3])
