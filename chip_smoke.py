@@ -24,6 +24,15 @@ bench.py):
   slices, ``RateOptimizedCompressor`` on 16 frames, and a
   ``DeltaCompressor`` and a ``PredictiveCompressor`` chain of 4 frames
   (each path's launches counted on its own);
+* the user surface: the CLI in process (``compress`` / ``decompress`` /
+  ``info`` / ``sweep``, counted, and ``filter-string``) on the 32 frames
+  and ``python -m ebcc_tpu_torch compress`` as a subprocess, each held
+  against the in-process compress; the error metrics on the CLI's decoded
+  frames against numpy, and a ``trace_to`` trace of one compress; the HDF5
+  wrappers where h5py is installed (it says so where it is not); and the
+  trained ``ConvForecaster`` on 9 frames of an advecting 721x1440 texture,
+  then its ``PredictiveCompressor`` chain of 12 frames against
+  persistence's (counted);
 
 and the probe path, ``python -m ebcc_tpu_torch.scripts.idwt_probe`` at
 [1, 768, 1472] and [16, 768, 1472]: the five primitive probes of
@@ -38,12 +47,16 @@ kernels' record, then ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import glob
+import io
 import json
 import os
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -219,6 +232,292 @@ def direct_patch_count(blob: bytes) -> int:
     _, _, ndim, blen = struct.unpack_from("<4sBBQ", blob, 0)
     off = struct.calcsize("<4sBBQ") + 4 * ndim + blen
     return struct.unpack_from("<BII", blob, off)[1]
+
+
+# the trained forecaster's phase: tests/test_models.py's advecting recipe
+# at the full frame, the JAX test's training split and pointwise bound
+FORECAST_STEPS, FORECAST_TRAIN, FORECAST_EB = 12, 9, 0.05
+# the card's forecast against the same weights' on the CPU, in units of
+# the data's standard deviation (float32 convolutions summed in other
+# orders; TF32 would be ~1e-3)
+FORECAST_ATOL = 1e-4
+# the card's float32 RMSE and PSNR against a float64 numpy computation
+METRIC_RTOL = 1e-5
+
+
+def advecting_frames(n: int, h: int = H, w: int = W) -> np.ndarray:
+    """tests/test_models.py's advecting texture: a smooth base 260 + 10
+    sin(pi y / H) plus an N(0, 2) texture (seed 5) rolled 3 pixels a
+    step; persistence codes its increments badly, a small conv learns
+    them."""
+    rng = np.random.default_rng(5)
+    texture = rng.normal(0, 2.0, (h, w)).astype(np.float32)
+    y, _ = np.mgrid[0:h, 0:w]
+    base = (260 + 10 * np.sin(y / h * np.pi)).astype(np.float32)
+    return np.stack([base + np.roll(texture, 3 * k, axis=1)
+                     for k in range(n)]).astype(np.float32)
+
+
+def cli_run(argv) -> str:
+    """``ebcc_tpu_torch.cli.main(argv)`` in this process; its output."""
+    from ebcc_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return buf.getvalue()
+
+
+def cli_phase(data, blob, rec, error, dev, tmpdir, drive, tag):
+    """compress / decompress / info / sweep through the CLI in process
+    (one counted run), filter-string, then compress once as a
+    subprocess.  ``blob`` and ``rec`` are the in-process compress and
+    decompress of ``data`` at MAX_ERROR ``error``, base_cr 100.  Returns
+    (the CLI's decoded frames, the path's launch counts)."""
+    from ebcc_tpu_torch.wrappers import hdf5 as whdf5
+    npy = os.path.join(tmpdir, "frames.npy")
+    ebt, rec_npy = (os.path.join(tmpdir, n) for n in ("frames.ebt",
+                                                      "rec.npy"))
+    np.save(npy, data)
+    on = [] if dev.type == "cuda" else ["--device", "cpu"]  # cuda: default
+    opts = ["--mode", "max_error", "--base-cr", "100", *on]
+
+    def path():
+        return {"compress": cli_run(["compress", npy, ebt, "--error",
+                                     str(error), *opts]),
+                "decompress": cli_run(["decompress", ebt, rec_npy, *on]),
+                "info": cli_run(["info", ebt]),
+                "sweep": cli_run(["sweep", npy, "--errors", "0.1", "0.5",
+                                  "1.0", *opts])}
+
+    outs, launches, wall = drive("CLI", path)
+    for cmd in ("compress", "decompress", "info"):
+        print(f"{cmd}: {outs[cmd].strip()}")
+    with open(ebt, "rb") as f:
+        if f.read() != blob:
+            raise AssertionError("CLI compress: bytes differ from the "
+                                 "in-process compress")
+    cli_rec = np.load(rec_npy)
+    if not np.array_equal(cli_rec.view(np.uint32), rec.view(np.uint32)):
+        raise AssertionError("CLI decompress differs from decompress()")
+    nviol = int(np.sum(np.abs(cli_rec - data) > error))
+    if nviol:
+        raise AssertionError(f"CLI decompress: {nviol} points past the "
+                             "bound")
+    if json.loads(outs["info"])["frames"] != len(data):
+        raise AssertionError("CLI info: wrong frame count")
+    rows = [json.loads(line) for line in outs["sweep"].splitlines()]
+    for r in rows:
+        print(f"sweep error {r['error_target']}: CR {r['cr']:.2f}, max "
+              f"error {r['max_error']!r}, within_bound {r['within_bound']}, "
+              f"encode {r['encode_s']:.3f} s, decode {r['decode_s']:.3f} s")
+    if [r["error_target"] for r in rows] != [0.1, 0.5, 1.0] or \
+            any(r["within_bound"] != 1.0 for r in rows):
+        raise AssertionError("CLI sweep: a bound not held on every point")
+    fs = json.loads(cli_run(["filter-string", "--mode", "max_error",
+                             "--error", str(error), "--base-cr", "100"]))
+    params = whdf5.EBCCFilterParams(base_cr=100,
+                                    residual_opt=("max_error", error))
+    if fs["cd_values"] != list(params.cd_values()):
+        raise AssertionError("CLI filter-string: cd_values differ")
+    sub_ebt = os.path.join(tmpdir, "subprocess.ebt")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ebcc_tpu_torch", "compress",
+                        npy, sub_ebt, "--error", str(error), *opts],
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=600)
+    t_sub = time.perf_counter() - t0
+    if r.returncode:
+        print(r.stderr[-4000:])
+        raise AssertionError("python -m ebcc_tpu_torch compress failed")
+    with open(sub_ebt, "rb") as f:
+        if f.read() != blob:
+            raise AssertionError("python -m ebcc_tpu_torch compress: bytes "
+                                 "differ from the in-process compress")
+    print(f"CLI: bytes equal to the in-process compress, decode bit-equal, "
+          f"0 points past {error}, info {len(data)} frames, every sweep row "
+          f"within its bound, filter-string cd_values {fs['cd_values']}; "
+          f"wall of compress + decompress + info + sweep {wall:.3f} s; "
+          f"python -m ebcc_tpu_torch compress as a subprocess: bytes equal, "
+          f"{t_sub:.1f} s with the start-up {tag}")
+    return cli_rec, launches
+
+
+def metrics_phase(data, rec, eb, dev, tmpdir, compress_batch, tag):
+    """The port's metrics on ``dev`` over (data, rec) against numpy:
+    range, max error and violations of ``eb`` equal to the same float32
+    computation, RMSE and PSNR within METRIC_RTOL of float64; then a
+    ``trace_to`` trace around ``compress_batch()`` that must name its
+    span and K1's column pass."""
+    from ebcc_tpu_torch.ops import metrics
+    from ebcc_tpu_torch.utils import profiling
+    x, y, e = (torch.from_numpy(a).to(dev) for a in (data, rec, eb))
+    ae = np.abs(data - rec)
+    exact = {"data_range": (metrics.data_range(x),
+                            data.max(axis=(1, 2)) - data.min(axis=(1, 2))),
+             "max_error": (metrics.max_error(x, y), ae.max(axis=(1, 2))),
+             "pointwise_violations": (metrics.pointwise_violations(x, y, e),
+                                      (ae > eb).sum(axis=(1, 2)))}
+    for name, (ours, ref) in exact.items():
+        if not np.array_equal(ours.cpu().numpy(), ref):
+            raise AssertionError(f"metrics.{name} differs from numpy")
+    x64, y64 = data.astype(np.float64), rec.astype(np.float64)
+    rmse64 = np.sqrt(np.mean((x64 - y64) ** 2, axis=(1, 2)))
+    rng64 = x64.max(axis=(1, 2)) - x64.min(axis=(1, 2))
+    close = {"rmse": (metrics.rmse(x, y), rmse64),
+             "psnr": (metrics.psnr(x, y),
+                      20 * np.log10(rng64 / np.maximum(rmse64, 1e-30)))}
+    rel = {}
+    for name, (ours, ref) in close.items():
+        rel[name] = float(np.max(np.abs(ours.cpu().numpy() - ref) /
+                                 np.abs(ref)))
+        if rel[name] > METRIC_RTOL:
+            raise AssertionError(f"metrics.{name}: {rel[name]!r} from "
+                                 f"float64, above {METRIC_RTOL}")
+    print(f"metrics over {tuple(data.shape)} on {dev.type}: data_range, "
+          f"max_error (largest {float(exact['max_error'][0].max())!r}) and "
+          f"pointwise_violations of the spread bound (total "
+          f"{int(exact['pointwise_violations'][0].sum())}) equal to "
+          f"float32 numpy; RMSE and PSNR within {rel['rmse']:.2e} and "
+          f"{rel['psnr']:.2e} of float64 numpy (limit {METRIC_RTOL})")
+    logdir = os.path.join(tmpdir, "trace")
+    timer = profiling.Timer()
+    with profiling.trace_to(logdir):
+        with timer.span("chip_smoke_compress"):
+            compress_batch()
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace_to wrote {files}")
+    with open(files[0]) as f:
+        names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
+    k1 = sorted(n for n in names if "eval_lift_cols" in n)
+    print(f"trace_to: {os.path.getsize(files[0])} bytes, {len(names)} "
+          f"event names; span 'chip_smoke_compress' "
+          f"{'chip_smoke_compress' in names}; K1 column pass {k1[:1]}; "
+          f"Timer.report() {timer.report()} {tag}")
+    if "chip_smoke_compress" not in names or (dev.type == "cuda" and
+                                               not k1):
+        raise AssertionError("the trace lacks the span or eval_lift_cols")
+
+
+def forecast_phase(dev, drive, tag, h=H, w=W, steps=150):
+    """Train the ConvForecaster (features 16) on the first FORECAST_TRAIN
+    frames of the advecting recipe, hold its held-out forecast against
+    persistence, its replay against itself and the CPU's, then run a
+    PredictiveCompressor chain over FORECAST_STEPS frames at a pointwise
+    bound of FORECAST_EB (one counted run) against the persistence
+    chain.  Returns the chain's launch counts."""
+    from ebcc_tpu_torch import PredictiveCompressor
+    from ebcc_tpu_torch.models import forecast
+    adv = advecting_frames(FORECAST_STEPS, h, w)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    model, meta = forecast.train_forecaster(
+        adv[:FORECAST_TRAIN], warmup=2, features=16, steps=steps,
+        device=dev.type)
+    sync()
+    t_train = time.perf_counter() - t0
+    fn = forecast.make_forecast_fn(model, meta, device=dev.type)
+    hist = [adv[FORECAST_TRAIN], adv[FORECAST_TRAIN + 1]]
+    first = fn(hist)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        again = fn(hist)
+        if not np.array_equal(again.view(np.uint32), first.view(np.uint32)):
+            raise AssertionError("two forecasts of one history differ")
+    ms_fc = (time.perf_counter() - t0) / 10 * 1e3
+    truth = adv[FORECAST_TRAIN + 2]
+    mse_model = float(np.mean((first - truth) ** 2))
+    mse_persist = float(np.mean((hist[-1] - truth) ** 2))
+    t0 = time.perf_counter()
+    on_cpu = forecast.make_forecast_fn(model, meta, device="cpu")(hist)
+    t_cpu = time.perf_counter() - t0
+    diff = float(np.abs(first - on_cpu).max())
+    print(f"training ({FORECAST_TRAIN - 2} windows of {h}x{w}, {steps} "
+          f"Adam steps): {t_train:.3f} s, final loss "
+          f"{meta['final_loss']!r}; held-out MSE {mse_model!r} against "
+          f"persistence's {mse_persist!r} "
+          f"({mse_model / mse_persist:.4f}); 11 forecasts bit-equal, "
+          f"{ms_fc:.3f} ms each (numpy in, numpy out); the same weights "
+          f"on the CPU {diff!r} apart ({diff / meta['sd']:.2e} of the "
+          f"data's sd {meta['sd']:.4f}; limit {FORECAST_ATOL}), "
+          f"{t_cpu:.2f} s {tag}")
+    if mse_model >= 0.5 * mse_persist:
+        raise AssertionError("the trained forecaster does not beat "
+                             "persistence by 2x")
+    if diff > FORECAST_ATOL * meta["sd"]:
+        raise AssertionError("the card's forecast is not the CPU's")
+    eb = np.full_like(adv, FORECAST_EB)
+
+    def chain(forecast_fn):
+        pc = PredictiveCompressor(forecast_fn=forecast_fn, warmup=2,
+                                  device=dev.type)
+        b = pc.compress(adv, eb)
+        return b, pc.decompress(b)
+
+    (blob, rec), launches, wall = drive("forecast", lambda: chain(fn))
+    t0 = time.perf_counter()
+    p_blob, p_rec = chain(None)
+    t_persist = time.perf_counter() - t0
+    for label, r in (("model", rec), ("persistence", p_rec)):
+        nviol = int(np.sum(np.abs(r - adv) > eb))
+        if r.shape != adv.shape or nviol:
+            raise AssertionError(f"predictive chain ({label}): {nviol} "
+                                 "points past the bound")
+    print(f"PredictiveCompressor over {FORECAST_STEPS} steps at "
+          f"{FORECAST_EB}: 0 points past the bound with either forecast; "
+          f"blob {len(blob)} B (CR {adv.nbytes / len(blob):.2f}) against "
+          f"persistence's {len(p_blob)} B (CR {adv.nbytes / len(p_blob):.2f})"
+          f"; wall (compress + decompress) {wall:.3f} s, persistence "
+          f"{t_persist:.3f} s {tag}")
+    if len(blob) >= len(p_blob):
+        raise AssertionError("the trained forecast's blob is not smaller "
+                             "than persistence's")
+    return launches
+
+
+def hdf5_phase(data, blob, cfg, dev, tmpdir, tag):
+    """write_dataset / read_dataset and write_filtered_dataset on ``dev``
+    (the chunks are the compress blob's frames), read back through the
+    plugin where h5py and the plugin load; where h5py is missing, says so
+    and checks nothing."""
+    try:
+        import h5py
+    except ImportError:
+        print("HDF5 phase NOT RUN: h5py is not installed on this machine "
+              "(its device work is the MAX_ERROR path the CLI phase drove)")
+        return
+    from ebcc_tpu_torch.codec import container
+    from ebcc_tpu_torch.wrappers import hdf5 as whdf5
+    path = os.path.join(tmpdir, "frames.h5")
+    with h5py.File(path, "w") as f:
+        whdf5.write_dataset(f, "opaque", data, cfg, device=dev.type)
+        whdf5.write_filtered_dataset(f, "filtered", data, cfg,
+                                     device=dev.type)
+    frames = container.unpack_blob(blob)[:len(data)]
+    with h5py.File(path, "r") as f:
+        back = whdf5.read_dataset(f["opaque"], device=dev.type)
+        for i, frame in enumerate(frames):
+            if bytes(f["filtered"].id.read_direct_chunk((i, 0, 0))[1]) != \
+                    frame:
+                raise AssertionError(f"filtered chunk {i} differs from the "
+                                     "compress blob's frame")
+    if float(np.abs(back - data).max()) > cfg.error:
+        raise AssertionError("read_dataset: bound violated")
+    plugin = os.path.join(whdf5._plugin_dir(), "libh5z_ebcc_tpu.so")
+    if not os.path.exists(plugin):
+        print(f"HDF5: write_dataset / read_dataset within the bound, "
+              f"{len(frames)} filtered chunks equal to the blob's frames; "
+              f"the plugin read NOT RUN ({plugin} is not built) {tag}")
+        return
+    whdf5.register_plugin_path()
+    with h5py.File(path, "r") as f:
+        via_plugin = f["filtered"][:]
+    if float(np.abs(via_plugin - data).max()) > cfg.error:
+        raise AssertionError("plugin read: bound violated")
+    print(f"HDF5: write_dataset / read_dataset within the bound, "
+          f"{len(frames)} filtered chunks equal to the blob's frames and "
+          f"read through the plugin within the bound {tag}")
 
 
 def main() -> int:
@@ -949,6 +1248,29 @@ def main() -> int:
             raise AssertionError(f"{type(comp).__name__}: bound violated")
     print(f"wall (both chains) {t_chain:.3f} s {tag}")
 
+    with tempfile.TemporaryDirectory() as tmpdir:
+        phase(f"CLI on cuda ({N_FRAMES} frames, MAX_ERROR {ERROR}, base_cr "
+              "100): compress, decompress, info, sweep --errors 0.1 0.5 1.0 "
+              "in process (counted), filter-string, then python -m "
+              "ebcc_tpu_torch compress as a subprocess")
+        cli_rec, launches_cli = cli_phase(data, blob, rec, ERROR, dev, tmpdir,
+                                          drive, tag)
+
+        phase("metrics on cuda over the CLI's decoded frames, and a "
+              f"trace_to trace of one compress ({BATCH} frames)")
+        metrics_phase(data, cli_rec, eb, dev, tmpdir,
+                      lambda: ebcc_tpu_torch.compress(data[:BATCH], cfg,
+                                                      device="cuda"), tag)
+
+        phase("HDF5 wrappers on cuda (4 frames)")
+        hdf5_phase(data[:4], blob, cfg, dev, tmpdir, tag)
+
+    phase(f"trained forecaster on cuda: ConvForecaster (features 16) on "
+          f"{FORECAST_TRAIN} advecting {H}x{W} frames, then a "
+          f"PredictiveCompressor chain of {FORECAST_STEPS} at a pointwise "
+          f"bound of {FORECAST_EB}")
+    launches_forecast = forecast_phase(dev, drive, tag)
+
     phase(f"timings {tag}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1069,7 +1391,9 @@ def main() -> int:
                 "launches_multi_q_path": launches_multi[name],
                 "launches_rate_candidates_path": launches_rc[name],
                 "launches_rate_opt_path": launches_ro[name],
-                "launches_chain_path": launches_chain[name]}
+                "launches_chain_path": launches_chain[name],
+                "launches_cli_path": launches_cli[name],
+                "launches_forecast_path": launches_forecast[name]}
 
     def entry(name, source, replaces, err, key, bnd):
         return {"name": name, "route": "cuda",

@@ -8,8 +8,14 @@ format-v4 containers that decode in either package and in the native CPU
 decoder, the multi-quantile encode :func:`compress_multi_q`, and the
 compressor families built on them: :class:`DirectCompressor` with its
 unconditional per-point bound, :class:`RateOptimizedCompressor`,
-:class:`DeltaCompressor` and :class:`PredictiveCompressor`.  Imports
-neither jax nor ebcc_tpu.
+:class:`DeltaCompressor` and :class:`PredictiveCompressor` (with the
+trainable ConvNet forecaster of ``models.forecast``).  The user surface
+around them: the command line ``python -m ebcc_tpu_torch``
+(``compress`` / ``decompress`` / ``sweep`` / ``info`` /
+``filter-string``), the HDF5 and zarr wrappers (``wrappers.hdf5``,
+``wrappers.zarr``), the error metrics (``ops.metrics``), profiling spans
+and traces (``utils.profiling``) and the ffmpeg video baseline
+(``models.video``).  Imports neither jax nor ebcc_tpu.
 """
 
 from .api import compress, compress_multi_q, decompress

@@ -333,14 +333,26 @@ def test_config_round_trips_from_jax():
 
 
 def test_imports_without_jax():
-    code = ("import sys; sys.modules['jax'] = None; "
-            "sys.modules['ebcc_tpu'] = None; import ebcc_tpu_torch; "
-            "import ebcc_tpu_torch.runtime.cpu_encoder, "
-            "ebcc_tpu_torch.runtime.cpu_decoder, ebcc_tpu_torch.models, "
-            "ebcc_tpu_torch.dataprep, ebcc_tpu_torch.ops.idwt_probe, "
-            "ebcc_tpu_torch.scripts.idwt_probe; "
-            "assert 'jax.numpy' not in sys.modules")
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+    modules = ("import ebcc_tpu_torch, ebcc_tpu_torch.runtime.cpu_encoder, "
+               "ebcc_tpu_torch.runtime.cpu_decoder, ebcc_tpu_torch.models, "
+               "ebcc_tpu_torch.dataprep, ebcc_tpu_torch.ops.idwt_probe, "
+               "ebcc_tpu_torch.scripts.idwt_probe, ebcc_tpu_torch.cli, "
+               "ebcc_tpu_torch.wrappers.hdf5, ebcc_tpu_torch.wrappers.zarr, "
+               "ebcc_tpu_torch.models.forecast, "
+               "ebcc_tpu_torch.models.video, ebcc_tpu_torch.ops.metrics, "
+               "ebcc_tpu_torch.utils.profiling; ")
+    # with the JAX side blocked (an import of it raises), then unblocked
+    # (none of it may be imported on the way)
+    blocked = ("import sys; sys.modules['jax'] = None; "
+               "sys.modules['ebcc_tpu'] = None; sys.modules['flax'] = None; "
+               "sys.modules['optax'] = None; " + modules +
+               "assert 'jax.numpy' not in sys.modules")
+    unblocked = ("import sys; " + modules +
+                 "assert not {'jax', 'ebcc_tpu', 'flax', 'optax'} & "
+                 "set(sys.modules), sorted(sys.modules)")
+    for code in (blocked, unblocked):
+        subprocess.run([sys.executable, "-c", code], check=True,
+                       timeout=120)
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):

@@ -399,3 +399,73 @@ def test_cuda_union_and_multi_q_match_native(card, monkeypatch):
     for b in blobs + [blob]:
         rec = ebcc_tpu_torch.decompress(b, cfg, device="cuda")
         assert np.abs(rec - data).max() <= 0.5
+
+
+def _advecting(t=6, h=H, w=W):
+    """tests/test_models.py's advecting texture at this file's size."""
+    rng = np.random.default_rng(5)
+    texture = rng.normal(0, 2.0, (h, w)).astype(np.float32)
+    y, _ = np.mgrid[0:h, 0:w]
+    base = (260 + 10 * np.sin(y / h * np.pi)).astype(np.float32)
+    return np.stack([base + np.roll(texture, 3 * k, axis=1)
+                     for k in range(t)]).astype(np.float32)
+
+
+def test_cuda_forecast_is_deterministic_and_near_the_cpu(card):
+    """The forecast replays bit-equal on the card (cuDNN without TF32, no
+    benchmarked algorithm), and the same weights forecast on the CPU
+    within 1e-4 of the data's spread."""
+    from ebcc_tpu_torch.models import forecast
+    frames = _advecting()
+    model, meta = forecast.train_forecaster(frames[:5], warmup=2,
+                                            features=8, steps=20,
+                                            device="cuda")
+    assert next(model.parameters()).is_cuda
+    fn = forecast.make_forecast_fn(model, meta, device="cuda")
+    hist = [frames[3], frames[4]]
+    first = fn(hist)
+    for _ in range(3):
+        np.testing.assert_array_equal(fn(hist), first)
+    on_cpu = forecast.make_forecast_fn(model, meta, device="cpu")(hist)
+    np.testing.assert_allclose(first, on_cpu, rtol=0,
+                               atol=1e-4 * meta["sd"])
+
+
+def test_cuda_metrics_match_the_cpu(card):
+    from ebcc_tpu_torch.ops import metrics
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(100, 10, (B, H, W)).astype(np.float32))
+    y = x + torch.from_numpy(rng.uniform(-0.5, 0.5, x.shape).astype(
+        np.float32))
+    eb = torch.from_numpy(rng.uniform(0.1, 0.45, x.shape).astype(
+        np.float32))
+    for name, args in (("data_range", (x,)), ("max_error", (x, y)),
+                       ("pointwise_violations", (x, y, eb))):
+        out = getattr(metrics, name)(*(a.to(card) for a in args))
+        assert out.is_cuda
+        assert torch.equal(out.cpu(), getattr(metrics, name)(*args)), name
+    # sums in another order than the CPU's
+    for name, args in (("rmse", (x, y)), ("psnr", (x, y)),
+                       ("max_relative_error", (x, y)),
+                       ("error_quantile", (x, y, eb))):
+        out = getattr(metrics, name)(*(a.to(card) for a in args))
+        torch.testing.assert_close(out.cpu(), getattr(metrics, name)(*args),
+                                   rtol=1e-5, atol=0)
+
+
+def test_cuda_cli_compress_matches_native(card, tmp_path, capsys):
+    import json
+    from ebcc_tpu_torch import cli
+    data = _field(3, seed=9)
+    np.save(tmp_path / "in.npy", data)
+    blob_path, rec_path = tmp_path / "x.ebt", tmp_path / "rec.npy"
+    cli.main(["compress", str(tmp_path / "in.npy"), str(blob_path),
+              "--error", "0.25", "--base-cr", "200"])
+    row = json.loads(capsys.readouterr().out)
+    cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.25, base_cr=200)
+    blob = blob_path.read_bytes()
+    assert row["bytes"] == len(blob)
+    assert blob == cpu_encoder.compress(data, cfg)
+    cli.main(["decompress", str(blob_path), str(rec_path)])
+    np.testing.assert_array_equal(np.load(rec_path),
+                                  cpu_decoder.decompress(blob))
