@@ -33,6 +33,18 @@ bench.py):
   trained ``ConvForecaster`` on 9 frames of an advecting 721x1440 texture,
   then its ``PredictiveCompressor`` chain of 12 frames against
   persistence's (counted);
+* the parallel layer on meshes of logical shards of cuda:0 (NCCL refuses
+  two ranks on one card, so exchanges between ranks wait for a machine
+  with two or more): the halo DWT on a ``space = 4`` mesh against the
+  dense transform at both layer geometries; ``compress_sharded`` on a
+  ``data = 2`` mesh (counted); ``SpatialShardedCodec`` on a data 2 x
+  space 2 mesh, MAX_ERROR and pointwise, its selections against the
+  dense codec's and ``compress(codec=...)`` + decompress (counted); the
+  torch bit packer's words against the native arena and
+  ``FrameCodec.decode`` of the MAX_ERROR blob's streams (counted); the
+  launcher ``python -m ebcc_tpu_torch.scripts.launch_multihost --local 1``
+  as a subprocess (NCCL, world size 1); ``codec=`` with
+  ``encode_backend="cpu"`` refused;
 
 and the probe path, ``python -m ebcc_tpu_torch.scripts.idwt_probe`` at
 [1, 768, 1472] and [16, 768, 1472]: the five primitive probes of
@@ -1271,6 +1283,241 @@ def main() -> int:
           f"bound of {FORECAST_EB}")
     launches_forecast = forecast_phase(dev, drive, tag)
 
+    # ---------------- the parallel layer (logical shards of one card) ------
+    from ebcc_tpu_torch.api import _arena_bits, _layer_inputs
+    from ebcc_tpu_torch.codec.pipeline import _make_geom
+    from ebcc_tpu_torch.ops import dwt_sharded
+    from ebcc_tpu_torch.parallel import mesh as pmesh
+    from ebcc_tpu_torch.parallel.batch import ShardedCodec, compress_sharded
+    from ebcc_tpu_torch.parallel.spatial import SpatialShardedCodec
+
+    def card_mesh(n_data, n_space):
+        """Logical shards of cuda:0: one rank, exchanges are copies."""
+        return pmesh.make_mesh(n_data, n_space,
+                               devices=["cuda:0"] * (n_data * n_space))
+
+    print(f"NCCL refuses two ranks on one card: exchanges between ranks "
+          f"over NCCL wait for a machine with two or more cards (this one "
+          f"has {torch.cuda.device_count()}); every mesh below holds "
+          f"logical shards of cuda:0, whose exchanges are copies")
+
+    n_sp = 4
+    phase(f"halo DWT on a space = {n_sp} mesh of logical shards of cuda:0 "
+          f"({BATCH} frames, both layer geometries; expect bit equality "
+          "with the dense transform, at most 1 ulp from the idwt kernel)")
+    halo_walls = {}
+    for name, geom in (("base", codec.base), ("resid", codec.resid)):
+        g = _make_geom(H, W, geom.levels, geom.spec.nplanes,
+                       geom.spec.nchunks)
+        hs = g.hp // n_sp
+        if g.hp % n_sp or hs % (1 << g.levels) or (hs >> g.levels) < 4:
+            raise AssertionError(f"{name}: {g.hp} rows do not shard over "
+                                 f"{n_sp} at {g.levels} levels")
+        x = torch.from_numpy(np.random.default_rng(4).normal(
+            0, 1000, (BATCH, g.hp, g.wp)).astype(np.float32)).to(dev)
+        fwd, inv = dwt_sharded.make_sharded_dwt2d(card_mesh(1, n_sp),
+                                                  g.levels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        per_shard = fwd(x)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        ref = dwt.dwt2d_multi(x, g.levels)
+        torch.cuda.synchronize()
+        t_dense = time.perf_counter() - t0 - t_fwd
+        canon = dwt_sharded.to_canonical(per_shard, n_sp, g.levels)
+        nfwd = int((canon != ref).sum())
+        t0 = time.perf_counter()
+        back = inv(per_shard)
+        torch.cuda.synchronize()
+        t_inv = time.perf_counter() - t0
+        ninv = int((back != dwt.idwt2d_multi_ref(ref, g.levels)).sum())
+        ulps = int(ulp_distance(back, dwt.idwt2d_multi(ref, g.levels)).max())
+        halo_walls[name] = (t_fwd, t_inv, t_dense)
+        print(f"{name} [{BATCH}, {g.hp}, {g.wp}] L={g.levels}: {hs} rows a "
+              f"shard ({hs >> g.levels} at the deepest level); forward: "
+              f"{nfwd} of {ref.numel()} differ from dwt2d_multi; inverse: "
+              f"{ninv} differ from idwt2d_multi_ref, {ulps} ulp from the "
+              f"idwt kernel; walls forward {t_fwd:.3f} s (dense "
+              f"{t_dense:.3f} s), inverse {t_inv:.3f} s {tag}")
+        if nfwd or ninv or ulps > 1:
+            raise AssertionError(f"halo DWT {name}: not the dense transform")
+        del x, per_shard, ref, canon, back
+
+    phase(f"ShardedCodec on a data = 2 mesh of logical shards of cuda:0: "
+          f"compress_sharded of {N_FRAMES} frames (MAX_ERROR {ERROR}, "
+          "base_cr 100)")
+    sblob, launches_sharded, t_sharded = drive(
+        "sharded", lambda: compress_sharded(data, cfg, card_mesh(2, 1)))
+    if sblob != blob:
+        raise AssertionError("compress_sharded bytes differ from compress")
+    same_as_native(sblob, nblob, "compress_sharded")
+    print(f"compress_sharded: bytes equal to compress; wall {t_sharded:.3f} "
+          f"s (compress {t_enc_cold:.3f} s cold) {tag}")
+
+    phase(f"SpatialShardedCodec on a data 2 x space 2 mesh of logical "
+          f"shards of cuda:0 ({N_FRAMES} frames; MAX_ERROR {ERROR} and the "
+          "pointwise workload, compress(codec=...))")
+    mesh22 = card_mesh(2, 2)
+    sp_codecs = {"MAX_ERROR": (SpatialShardedCodec(H, W, cfg, mesh22),
+                               codec, tgt, None, nblob, ERROR),
+                 "POINTWISE": (SpatialShardedCodec(H, W, cfg_pw, mesh22),
+                               codec_pw, tgt_pw, eb, nblob_pw, eb)}
+    sel_fields = ("base_coef", "resid_coef", "bs_q", "ks_q", "km_q",
+                  "mbits_q", "segs_q", "bs_pure", "ks_pure", "km_pure",
+                  "mbits_pure", "segs_pure", "bs_r", "ks_r", "km_r",
+                  "mbits_r", "segs_r")
+    for label, (sc, dense, target, _, _, _) in sp_codecs.items():
+        ours = sc.encode_error_bounded_hostq(u_dev, mn_d, mx_d, target, 1e-6)
+        ref = dense.encode_error_bounded_hostq(u_dev, mn_d, mx_d, target,
+                                               1e-6)
+        differ = [f for f in sel_fields
+                  if not torch.equal(getattr(ours, f), getattr(ref, f))]
+        print(f"{label}, first batch: coefficients and selections "
+              f"({', '.join(sel_fields)}) equal to the dense FrameCodec's "
+              f"except {differ or 'none'}")
+        if differ:
+            raise AssertionError(f"spatial {label}: {differ} differ from "
+                                 "the dense codec's")
+
+    def spatial_run():
+        """compress(codec=...) of both workloads (the encode's inverse DWT
+        is the halo transform), then their decode on the card (idwt)."""
+        out = {}
+        for label, (sc, _, _, ebound, _, _) in sp_codecs.items():
+            b = ebcc_tpu_torch.compress(data, sc.config, error_bound=ebound,
+                                        codec=sc)
+            out[label] = (b, ebcc_tpu_torch.decompress(b, device="cuda"))
+        return out
+
+    sp_out, launches_spatial, t_spatial = drive("spatial", spatial_run)
+    for label, (_, _, _, _, native_blob, bnd) in sp_codecs.items():
+        same_as_native(sp_out[label][0], native_blob, f"spatial {label}")
+        both_decoders(sp_out[label][0], data, bnd, f"spatial {label}")
+    print(f"spatial compress(codec=...) + decompress, both workloads: wall "
+          f"{t_spatial:.3f} s {tag}")
+
+    phase(f"pure packer on cuda: encode_batch of the MAX_ERROR path's "
+          f"{N_FRAMES} frames at their arena truncations against the native "
+          "coder, then FrameCodec.decode of the container's streams")
+    same_words = {"base": 0, "resid": 0}
+    t0 = time.perf_counter()
+    for lo, hi in ((0, BATCH), (BATCH, N_FRAMES)):
+        hq = _scale_u16_host(data[lo:hi])
+        res = codec.encode_error_bounded_hostq(
+            _upload_u16(hq[0], dev), torch.from_numpy(hq[1]).to(dev),
+            torch.from_numpy(hq[2]).to(dev),
+            torch.from_numpy(np.float32(ERROR) - hq[3]).to(dev), 1e-6)
+        resn = {k: v.cpu().numpy() for k, v in res._asdict().items()}
+        truncs = {"base": np.maximum(
+                      _arena_bits(resn, "pure", resn["base_bits_pure"]),
+                      _arena_bits(resn, "q", resn["base_bits_q"])),
+                  "resid": _arena_bits(resn, "r", resn["resid_bits"])}
+        for layer, trunc in truncs.items():
+            spec = getattr(codec, layer).spec
+            coef = getattr(res, f"{layer}_coef")
+            words, _, _ = bp.encode_batch(
+                coef, torch.from_numpy(trunc).to(dev), spec,
+                int(trunc.max()) // 32 + 1)
+            if words.device.type != dev.type:
+                raise AssertionError("the packer left the card")
+            arena = native.coder_encode_batch(coef.cpu().numpy(), trunc,
+                                              spec.group_levels,
+                                              spec.nplanes, spec.nchunks)
+            for i in range(hi - lo):
+                s = bp.words_to_bytes(words[i], trunc[i])
+                same_words[layer] += s == arena[i, :len(s)].tobytes()
+    t_pack = time.perf_counter() - t0
+    print(f"words equal to the native arena: base {same_words['base']}/"
+          f"{N_FRAMES}, residual {same_words['resid']}/{N_FRAMES}; wall "
+          f"(encodes included) {t_pack:.3f} s {tag}")
+    if min(same_words.values()) != N_FRAMES:
+        raise AssertionError("packer words differ from the native arena")
+    metas = [container.unpack_frame(f) for f in container.unpack_blob(blob)]
+
+    def packer_decode():
+        """FrameCodec.decode of both batches' streams; returns the frames
+        and, per batch, the inputs of the reference below."""
+        out, inputs = [], []
+        for lo, hi in ((0, BATCH), (BATCH, N_FRAMES)):
+            bs, rs, f, i, hasr = _layer_inputs(metas, list(range(lo, hi)))
+
+            def words(streams):
+                cap = max(1, max(len(s) for s in streams) // 4 + 1)
+                return dev_t(np.stack([bp.bytes_to_words(s, cap)
+                                       for s in streams]))
+            out.append(codec.decode(
+                words(bs), dev_t(i["bb"]), dev_t(i["msb"]), dev_t(f["mn"]),
+                dev_t(f["mx"]), dev_t(f["dc_b"]), dev_t(hasr), words(rs),
+                dev_t(i["rb"]), dev_t(i["msr"]), dev_t(f["rmin"]),
+                dev_t(f["rmax"]), dev_t(f["dc_r"]), dev_t(i["mask_b"]),
+                dev_t(i["keep_b"]), dev_t(i["mask_r"]), dev_t(i["keep_r"])))
+            inputs.append((bs, rs, f, i, hasr))
+        return out, inputs
+
+    def dev_t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    (pk_out, pk_inputs), launches_packer, t_pk = drive(
+        "packer decode", packer_decode, (idwt.KERNEL,))
+    sb, sr = codec.base.spec, codec.resid.spec
+    for rec_, (bs, rs, f, i, hasr) in zip(pk_out, pk_inputs):
+        coef_b = native.coder_decode_batch(
+            bs, i["bb"], i["msb"], sb.height, sb.width, sb.group_levels,
+            sb.nplanes, sb.nchunks, i["mask_b"], i["keep_b"])
+        coef_r = native.coder_decode_batch(
+            rs, i["rb"], i["msr"], sr.height, sr.width, sr.group_levels,
+            sr.nplanes, sr.nchunks, i["mask_r"], i["keep_r"])
+        ref_ = codec.recon(dev_t(coef_b), dev_t(f["mn"]), dev_t(f["mx"]),
+                           dev_t(f["dc_b"]), dev_t(hasr), dev_t(coef_r),
+                           dev_t(f["rmin"]), dev_t(f["rmax"]),
+                           dev_t(f["dc_r"]))
+        if not torch.equal(rec_.view(torch.int32), ref_.view(torch.int32)):
+            raise AssertionError("FrameCodec.decode differs from recon of "
+                                 "the native decoder's coefficients")
+    pk_rec = torch.cat(pk_out).cpu().numpy()
+    nviol = int(np.sum(np.abs(pk_rec - data) > ERROR))
+    ndiff = int(np.sum(pk_rec.view(np.uint32) != rec.view(np.uint32)))
+    print(f"FrameCodec.decode of the {N_FRAMES} frames' streams: bit-equal to "
+          f"recon of the native decoder's coefficients; {ndiff} points differ "
+          f"from decompress(); {nviol} points past {ERROR}; wall {t_pk:.3f} "
+          f"s {tag}")
+    if nviol or ndiff:
+        raise AssertionError("packer decode: bound or decompress() differs")
+
+    phase("the launcher: python -m ebcc_tpu_torch.scripts.launch_multihost "
+          "--local 1 --device cuda --frames 16 --size 721 1440 (NCCL, world "
+          "size 1)")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "ebcc_tpu_torch.scripts.launch_multihost",
+         "--local", "1", "--device", "cuda", "--frames", str(BATCH),
+         "--size", str(H), str(W), "--timeout", "300"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    t_launch = time.perf_counter() - t0
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    if r.returncode or len(lines) != 1:
+        print(r.stdout[-4000:], r.stderr[-4000:])
+        raise AssertionError("the launcher failed or printed no JSON line")
+    launched = json.loads(lines[0])
+    print(f"launcher JSON line: {lines[0]}")
+    print(f"launcher: {launched['processes']} process, {launched['devices']} "
+          f"logical shards, {launched['frames']} frames encoded in "
+          f"{launched['seconds']:.3f} s ({launched['grid_points_per_s']:.4g} "
+          f"pts/s); subprocess wall {t_launch:.1f} s with the start-up {tag}")
+
+    phase("the guard: compress(codec=..., encode_backend='cpu')")
+    try:
+        ebcc_tpu_torch.compress(data[:2], dataclasses.replace(
+            cfg, encode_backend="cpu"), codec=ShardedCodec(H, W, cfg,
+                                                           card_mesh(2, 1)))
+    except ValueError as e:
+        print(f"ValueError raised: {e}")
+    else:
+        raise AssertionError("codec= with encode_backend='cpu' did not "
+                             "raise")
+
     phase(f"timings {tag}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1393,7 +1640,10 @@ def main() -> int:
                 "launches_rate_opt_path": launches_ro[name],
                 "launches_chain_path": launches_chain[name],
                 "launches_cli_path": launches_cli[name],
-                "launches_forecast_path": launches_forecast[name]}
+                "launches_forecast_path": launches_forecast[name],
+                "launches_sharded_path": launches_sharded[name],
+                "launches_spatial_path": launches_spatial[name],
+                "launches_packer_path": launches_packer[name]}
 
     def entry(name, source, replaces, err, key, bnd):
         return {"name": name, "route": "cuda",

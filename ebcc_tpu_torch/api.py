@@ -126,20 +126,27 @@ def _batches(n: int, size: int):
         yield i, min(i + size, n)
 
 
-def _clamp_levels(config: EBCCConfig, h: int, w: int) -> EBCCConfig:
+def _clamp_levels(config: EBCCConfig, h: int, w: int,
+                  prebuilt: bool = False) -> EBCCConfig:
     """L levels need 2**(L+1) < min(h, w); the effective geometry is
-    stored in the container, so decode follows automatically."""
+    stored in the container, so decode follows automatically.  A
+    ``prebuilt`` codec cannot be clamped: raise instead."""
     max_lv = max(0, (min(h, w) - 1).bit_length() - 2)
     if config.base_levels > max_lv or config.residual_levels > max_lv:
+        if prebuilt:
+            raise ValueError(
+                f"frames of {h}x{w} support at most {max_lv} DWT levels; "
+                "rebuild the provided codec with fewer levels")
         config = dataclasses.replace(
             config, base_levels=min(config.base_levels, max_lv),
             residual_levels=min(config.residual_levels, max_lv))
     return config
 
 
-def _prepare(data, config: EBCCConfig):
+def _prepare(data, config: EBCCConfig, prebuilt: bool = False):
     """Validate ``data`` ([..., H, W]) and ``config``: (frames [N, H, W]
-    float32, config with its levels clamped to the frame)."""
+    float32, config with its levels clamped to the frame; with a
+    ``prebuilt`` codec, levels that need clamping raise)."""
     if config.mask_search not in ("greedy", "union"):
         raise ValueError(f"mask_search must be 'greedy' or 'union', got "
                          f"{config.mask_search!r}")
@@ -154,7 +161,7 @@ def _prepare(data, config: EBCCConfig):
         raise ValueError("no frames to compress")
     if not np.isfinite(frames).all():
         raise ValueError("NaN or Inf in data (j2k_codec.h:451-458)")
-    return frames, _clamp_levels(config, h, w)
+    return frames, _clamp_levels(config, h, w, prebuilt)
 
 
 def _pointwise_bound(frames, config, error_bound):
@@ -188,7 +195,7 @@ def _batch_inputs(frames, lo, hi, config, eb, dev):
 
 
 def compress(data, config: EBCCConfig | None = None, *, error_bound=None,
-             device="cuda", qbase=None) -> bytes:
+             device="cuda", qbase=None, codec=None) -> bytes:
     """Compress ``data`` ([..., H, W] float32) into a container blob.
 
     ``error_bound``: the per-point bound array of POINTWISE_MAX_ERROR (one
@@ -199,18 +206,28 @@ def compress(data, config: EBCCConfig | None = None, *, error_bound=None,
     feasibility quantile override (defaults to the
     EBCC_INIT_BASE_ERROR_QUANTILE env var).  NONE and
     SPARSIFICATION_FACTOR cut the base layer at ``32 H W / base_cr`` bits
-    and the residual layer at ``8 H W / residual_cr`` bits.
+    and the residual layer at ``8 H W / residual_cr`` bits.  ``codec``: a
+    pre-built codec of the frames' geometry (:class:`FrameCodec`,
+    ``parallel.batch.ShardedCodec`` or
+    ``parallel.spatial.SpatialShardedCodec``) whose host-quantised entry
+    points run each batch on its own devices (``device`` unused); it
+    cannot be combined with ``encode_backend="cpu"``, nor with frames too
+    small for its levels.
     """
     config = config or EBCCConfig()
-    frames, config = _prepare(data, config)
+    frames, config = _prepare(data, config, prebuilt=codec is not None)
     if qbase is None:
         qbase = base_error_quantile()
+    if codec is not None and config.encode_backend == "cpu":
+        raise ValueError("encode_backend='cpu' cannot be combined with a "
+                         "pre-built device codec; drop one of the two")
     if config.encode_backend == "cpu":
         return _cpu_encode(frames, config, error_bound, qbase)
-    dev = _device(device)
     eb = _pointwise_bound(frames, config, error_bound)
     n, h, w = frames.shape
-    codec = FrameCodec(h, w, config, dev)
+    if codec is None:
+        codec = FrameCodec(h, w, config, _device(device))
+    dev = codec.device
     base_budget = int(32 * h * w / config.base_cr)
     resid_budget = (int(8 * h * w / config.residual_cr)
                     if config.mode == ResidualMode.SPARSIFICATION_FACTOR

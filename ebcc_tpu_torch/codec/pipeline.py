@@ -15,7 +15,11 @@ evaluating any candidate.
 Every stage runs on the device of its input tensors.  The searches keep
 per-frame ``[B]`` tensors and make no host synchronisation; the host sees
 only the chosen selections and the integer coefficient planes, which the
-native host coder turns into bytes.
+native host coder turns into bytes.  The encode takes host-quantised u16
+planes (the ``*_hostq`` entry points, which :mod:`..api` drives) or f32
+frames scaled on the device; :meth:`FrameCodec.decode` reads packed
+streams with the torch bit packer.  ``_dwt`` / ``_idwt`` are the
+transform's override points (the spatially sharded codec's halo DWT).
 """
 
 from __future__ import annotations
@@ -169,13 +173,28 @@ class FrameCodec:
             self.resid.hp, self.resid.wp, c.residual_levels)).to(self.device)
 
     # ---------------- transforms ----------------
+    # _dwt/_idwt are override points: the spatially sharded codec
+    # (parallel/spatial.py) swaps in the halo-exchange transform.
+
+    def _dwt(self, x, geom: LayerGeom):
+        return dwt.dwt2d_multi(x, geom.levels)
+
+    def _idwt(self, x, geom: LayerGeom):
+        return dwt.idwt2d_multi(x, geom.levels)
 
     def _base_transform_scaled(self, uf):
         """Pad/DC/DWT/quantise a u16 plane held in float32."""
         up = frame.pad_symmetric(uf, self.base.levels)
         upc, dc = frame.sub_dc_floor(up)
-        coef = dwt.dwt2d_multi(upc, self.base.levels)
+        coef = self._dwt(upc, self.base)
         return dc, torch.trunc(coef * self.wb).to(torch.int32)
+
+    def _base_transform(self, data):
+        """Device minmax and u16 scaling of f32 frames, then the base
+        transform: (mn, mx, const flag, dc, coefficients)."""
+        mn, mx = frame.minmax(data)
+        dc, ci = self._base_transform_scaled(frame.scale_to_u16(data, mn, mx))
+        return mn, mx, mn == mx, dc, ci
 
     def _hostq_prelude(self, u, mn, mx):
         """u16 plane -> (error reference, const flag, dc, coefficients).
@@ -189,7 +208,7 @@ class FrameCodec:
         return dataq, mn == mx, dc, ci
 
     def _base_recon(self, rec_coef, mn, mx, dc):
-        rec = dwt.idwt2d_multi(rec_coef / self.wb, self.base.levels)
+        rec = self._idwt(rec_coef / self.wb, self.base)
         rec = (rec + dc[:, None, None]).clamp(0.0, U16_MAX)
         return frame.unscale(frame.crop(rec, self.h, self.w), mn, mx)
 
@@ -199,11 +218,11 @@ class FrameCodec:
         rn = (resid - rmin[:, None, None]) / rng[:, None, None] * RESID_SCALE
         rp = frame.pad_symmetric(rn, self.resid.levels)
         rpc, dcr = frame.sub_dc_floor(rp)
-        ci = torch.trunc(dwt.dwt2d_multi(rpc, self.resid.levels) * self.wr)
+        ci = torch.trunc(self._dwt(rpc, self.resid) * self.wr)
         return rmin, rmax, dcr, ci.to(torch.int32)
 
     def _resid_recon(self, rec_coef, rmin, rmax, dcr):
-        rec = dwt.idwt2d_multi(rec_coef / self.wr, self.resid.levels)
+        rec = self._idwt(rec_coef / self.wr, self.resid)
         rec = (rec + dcr[:, None, None]).clamp(0.0, RESID_SCALE)
         return frame.unscale(frame.crop(rec, self.h, self.w), rmin, rmax,
                              frame.RECIP_RS)
@@ -450,12 +469,17 @@ class FrameCodec:
         error criterion, so no candidate is evaluated, no target is
         tightened and no chunk mask is searched (km = -1)."""
         dataq, const, dc, ci = self._hostq_prelude(u, mn, mx)
+        return self._rate_core(dataq, mn, mx, const, dc, ci, base_budget,
+                               resid_budget)
+
+    def _rate_core(self, data_ref, mn, mx, const, dc, ci, base_budget,
+                   resid_budget):
         nb, dev = ci.shape[0], ci.device
         an_b = bp.analyze(ci, self.base.spec)
         bits_b, bs, ks = self._rate_pick(self.base, an_b, base_budget)
         base_rec = self._base_recon(self._recon_at(an_b, self.base, bs, ks),
                                     mn, mx, dc)
-        rmin, rmax, dcr, cir = self._resid_transform(dataq - base_rec)
+        rmin, rmax, dcr, cir = self._resid_transform(data_ref - base_rec)
         an_r = bp.analyze(cir, self.resid.spec)
         bits_r, bs_r, ks_r = self._rate_pick(self.resid, an_r, resid_budget)
         use_resid = resid_budget > 0
@@ -476,11 +500,50 @@ class FrameCodec:
             resid_feasible=torch.full_like(const, use_resid),
             skip_residual=torch.full_like(const, not use_resid))
 
+    # the f32 entry points: the frames themselves on the device, scaled
+    # there (bit-equal to the host's u16 scaling) and used unquantised as
+    # the error reference, so the targets are not tightened
+
+    def encode_error_bounded(self, data, target, qbase: float):
+        """Error-bounded encode of f32 frames ``data`` [B, H, W] against
+        ``target`` ([B] or [B, H, W]) at base quantile ``qbase``."""
+        return self.encode_error_bounded_multi(data, target, (qbase,))[0]
+
+    def encode_error_bounded_multi(self, data, target, qs):
+        """:meth:`encode_error_bounded` under every base quantile of
+        ``qs``, sharing the base layer (one result per quantile)."""
+        mn, mx, const, dc, ci = self._base_transform(data)
+        return self._eb_multi_core(data, mn, mx, const, dc, ci, target,
+                                   [float(q) for q in qs])
+
+    def encode_rate_targeted(self, data, base_budget: int,
+                             resid_budget: int):
+        """NONE / SPARSIFICATION_FACTOR encode of f32 frames [B, H, W]."""
+        mn, mx, const, dc, ci = self._base_transform(data)
+        return self._rate_core(data, mn, mx, const, dc, ci, base_budget,
+                               resid_budget)
+
     # ---------------- decode ----------------
+
+    def decode(self, base_words, base_bits, max_step_b, mn, mx, dc,
+               has_resid, resid_words, resid_bits, max_step_r, rmin, rmax,
+               dcr, mask_b=None, keep_b=None, mask_r=None, keep_r=None):
+        """Frames from the two layers' streams as packed words (int64 [B,
+        cap] holding uint32 values): the structural decode by the torch
+        packer (:func:`..ops.bitplane.decode_batch`), then :meth:`recon`.
+        ``mask_*`` / ``keep_*`` [B]: format-v4 chunk masks (-1: none)."""
+        rc = bp.decode_batch(base_words, base_bits, max_step_b,
+                             self.base.spec, mask_plane=mask_b,
+                             keep_mask=keep_b)
+        rr = bp.decode_batch(resid_words, resid_bits, max_step_r,
+                             self.resid.spec, mask_plane=mask_r,
+                             keep_mask=keep_r)
+        return self.recon(rc, mn, mx, dc, has_resid, rr, rmin, rmax, dcr)
 
     def recon(self, coef_b, mn, mx, dc, has_resid, coef_r, rmin, rmax, dcr):
         """Dequantise + inverse transform from float coefficient planes
-        (the structural bitstream decode runs in the native host coder)."""
+        (the structural bitstream decode runs in the native host coder or
+        in :meth:`decode`)."""
         out = self._base_recon(coef_b, mn, mx, dc)
         resid = self._resid_recon(coef_r, rmin, rmax, dcr)
         return out + torch.where(has_resid[:, None, None], resid, 0.0)

@@ -272,3 +272,197 @@ def splice_masked_stream(stream: bytes, segs, keep_mask: int, nchunks: int):
         off += ref[j]
     out = np.concatenate(pieces)
     return np.packbits(out).tobytes(), int(out.size)
+
+
+# The bit packer: the stream itself, in plain torch ------------------------
+#
+# Counterpart of the JAX package's pure packer (encode_frame /
+# decode_frame).  Words are MSB-first uint32 values held in int64 tensors
+# [B, cap_words]; every function is batched over frames and loops over the
+# planes.  The native host coder (native/ebcc_coder.cc) writes the same
+# bits; the port's codec paths use it, and this packer serves
+# ``FrameCodec.decode`` and checks the stream format independently.
+
+
+def _scatter_bits(words, pos, bits, valid):
+    """OR ``bits`` into ``words`` [B, cap] at absolute bit positions ``pos``
+    [B, ...] (MSB-first) where ``valid``; positions past the buffer are
+    dropped.  Each position is written once per stream, so adding the
+    bits into zeroed words is an OR."""
+    nb, cap = words.shape
+    ok = valid & (pos >= 0) & (pos < cap * 32) & (bits != 0)
+    frame = torch.arange(nb, device=words.device).view(-1, *[1] * (pos.dim()
+                                                               - 1))
+    idx = torch.where(ok, frame * cap + (pos >> 5), 0)
+    val = torch.where(ok, torch.ones_like(pos) << (31 - (pos & 31)), 0)
+    words.view(-1).scatter_add_(0, idx.flatten(), val.flatten())
+    return words
+
+
+def _gather_bits(words, pos, valid):
+    """Bits of ``words`` [B, cap] at positions ``pos`` [B, ...] where
+    ``valid``; reads past the buffer give 0 (bitio.h:57-68)."""
+    cap = words.shape[1]
+    ok = valid & (pos >= 0) & (pos < cap * 32)
+    widx = torch.where(ok, pos >> 5, 0)
+    w = words.gather(1, widx.flatten(1)).view_as(pos)
+    return torch.where(ok, (w >> (31 - (pos & 31))) & 1, 0)
+
+
+def _ranks(mask):
+    """Row-major exclusive rank of the True entries of each frame of a
+    [B, h, w] mask."""
+    return mask.flatten(1).cumsum(-1).view_as(mask) - 1
+
+
+def _chunk_rows(spec: CoderSpec):
+    """Row range [r0, r1) of each of the J horizontal stripes."""
+    h, j = spec.height, spec.nchunks
+    starts = [(jj * h + j - 1) // j for jj in range(j + 1)]
+    return list(zip(starts[:-1], starts[1:]))
+
+
+def encode_frame(an: Analysis, trunc_bits, spec: CoderSpec,
+                 cap_words: int):
+    """Pack the bitstreams of a batch of frames up to ``trunc_bits`` [B]
+    bits each (the layout of the module docstring of the JAX package's
+    ``ops/bitplane.py``).  Returns (words int64 [B, cap_words] holding
+    uint32 values, total_bits int64 [B]): ``total_bits`` is the full
+    (untruncated) stream length; the words hold min(total, trunc) bits."""
+    g = spec.group_levels
+    dev = an.mag.device
+    nb = an.mag.shape[0]
+    trunc = torch.as_tensor(trunc_bits, device=dev).long()[:, None, None]
+    words = torch.zeros((nb, cap_words), dtype=torch.int64, device=dev)
+    offset = torch.zeros(nb, dtype=torch.int64, device=dev)
+    rows = _chunk_rows(spec)
+
+    def put(offset, emit, bits):
+        pos = offset[:, None, None] + _ranks(emit)
+        _scatter_bits(words, pos, bits.long(), emit & (pos < trunc))
+        return offset + emit.flatten(1).sum(-1)
+
+    for b in range(spec.nplanes - 1, -1, -1):
+        for k in range(g, 0, -1):
+            if k == g:
+                par_ok = (an.max_step >= b)[:, None, None].expand_as(
+                    an.smax[k])
+            else:
+                par_ok = _upsample2(an.smax[k + 1] >= b)
+            offset = put(offset, par_ok & (an.smax[k] <= b), an.smax[k] == b)
+        emit0 = _upsample2(an.smax[1] >= b) & (an.msb <= b)
+        new = an.msb == b
+        for r0, r1 in rows:
+            offset = put(offset, emit0[:, r0:r1], new[:, r0:r1])
+            offset = put(offset, new[:, r0:r1], an.neg[:, r0:r1])
+        old = an.msb > b
+        bits_r = (an.mag >> b) & 1
+        for r0, r1 in rows:
+            offset = put(offset, old[:, r0:r1], bits_r[:, r0:r1])
+    return words, offset
+
+
+def decode_frame(words, total_bits, max_step, spec: CoderSpec,
+                 mask_plane=None, keep_mask=None) -> torch.Tensor:
+    """Structural decode of a batch of streams into float32 midpoint
+    coefficients [B, H, W]; the inverse of :func:`encode_frame`.
+
+    ``words``: int64 [B, cap] holding uint32 values; ``total_bits``,
+    ``max_step`` [B].  Reads past ``total_bits`` give 0 bits, so any
+    chunk-aligned prefix decodes to a valid approximation.  Format v4
+    chunk masks: at plane ``mask_plane[i]`` (-1: none) stripe ``jj`` is
+    present only when bit ``jj`` of ``keep_mask[i]`` is set; absent
+    stripes consume no bits.  The midpoint of a coefficient last refined
+    at plane p adds ``(2**p - 1) / 2`` exactly, as the native decoder
+    does (the JAX package's exp2 is inexact for odd p >= 13 on XLA's
+    CPU)."""
+    g = spec.group_levels
+    h, w = spec.height, spec.width
+    dev = words.device
+    nb = words.shape[0]
+
+    def col(v, fill):
+        v = torch.full((nb,), fill) if v is None else torch.as_tensor(v)
+        return v.to(dev).long()[:, None, None]
+
+    total = col(total_bits, 0)
+    mstep = col(max_step, 0)
+    mplane, keep = col(mask_plane, -1), col(keep_mask, -1)
+    rows = _chunk_rows(spec)
+    offset = torch.zeros(nb, dtype=torch.int64, device=dev)
+    sig = [torch.zeros((nb, h >> k, w >> k), dtype=torch.bool, device=dev)
+           for k in range(g + 1)]
+    mag = torch.zeros((nb, h, w), dtype=torch.int64, device=dev)
+    neg = torch.zeros((nb, h, w), dtype=torch.bool, device=dev)
+    last = torch.full((nb, h, w), spec.nplanes, dtype=torch.int64,
+                      device=dev)
+
+    def get(offset, emit):
+        pos = offset[:, None, None] + _ranks(emit)
+        in_stream = emit & (pos < total)
+        return (_gather_bits(words, pos, in_stream), in_stream,
+                offset + emit.flatten(1).sum(-1))
+
+    for b in range(spec.nplanes - 1, -1, -1):
+        for k in range(g, 0, -1):
+            if k == g:
+                par_ok = (mstep >= b).expand_as(sig[k])
+            else:
+                par_ok = _upsample2(sig[k + 1])
+            emit = par_ok & ~sig[k]
+            bits, _, offset = get(offset, emit)
+            sig[k] = sig[k] | (emit & (bits == 1))
+        par0 = _upsample2(sig[1])
+        present = [(mplane != b) | (((keep >> jj) & 1) == 1)
+                   for jj in range(len(rows))]
+        new_all = torch.zeros_like(neg)
+        for jj, (r0, r1) in enumerate(rows):
+            emit0 = par0[:, r0:r1] & ~sig[0][:, r0:r1] & present[jj]
+            bits0, _, offset = get(offset, emit0)
+            new = emit0 & (bits0 == 1)
+            sig[0][:, r0:r1] |= new
+            new_all[:, r0:r1] = new
+            mag[:, r0:r1] = torch.where(new, 1 << b, mag[:, r0:r1])
+            last[:, r0:r1] = torch.where(new, b, last[:, r0:r1])
+            sbits, _, offset = get(offset, new)
+            neg[:, r0:r1] = torch.where(new, sbits == 1, neg[:, r0:r1])
+        old = sig[0] & ~new_all
+        for jj, (r0, r1) in enumerate(rows):
+            emit_r = old[:, r0:r1] & present[jj]
+            rbits, in_stream, offset = get(offset, emit_r)
+            mag[:, r0:r1] = torch.where(emit_r, mag[:, r0:r1] | (rbits << b),
+                                        mag[:, r0:r1])
+            last[:, r0:r1] = torch.where(in_stream, b, last[:, r0:r1])
+    half = torch.where(sig[0] & (last > 0),
+                       ((1 << last) - 1).float() * 0.5, 0.0)
+    rec = torch.where(sig[0], mag.float() + half, 0.0)
+    return torch.where(neg, -rec, rec)
+
+
+def encode_batch(coef_int: torch.Tensor, trunc_bits, spec: CoderSpec,
+                 cap_words: int):
+    """Analyse and pack integer coefficients [B, H, W]: (words int64 [B,
+    cap_words] holding uint32 values, total_bits [B], max_step [B])."""
+    an = analyze(coef_int, spec)
+    words, total = encode_frame(an, trunc_bits, spec, cap_words)
+    return words, total, an.max_step
+
+
+# decode_frame is batched already; decode_batch is the JAX package's name
+# for the batch form
+decode_batch = decode_frame
+
+
+def words_to_bytes(words, nbits: int) -> bytes:
+    """One frame's MSB-first words -> its first ceil(nbits / 8) bytes."""
+    w = np.asarray(torch.as_tensor(words).cpu(), np.int64).astype(">u4")
+    return w.tobytes()[:(int(nbits) + 7) // 8]
+
+
+def bytes_to_words(stream: bytes, cap_words: int) -> np.ndarray:
+    """A byte stream -> int64 [cap_words] MSB-first words (zero padded)."""
+    buf = stream + b"\x00" * (-len(stream) % 4)
+    w = np.frombuffer(buf, dtype=">u4").astype(np.int64)
+    out = np.zeros(cap_words, np.int64)
+    out[:min(len(w), cap_words)] = w[:cap_words]
+    return out

@@ -68,6 +68,19 @@ def minmax(x: torch.Tensor):
     return flat.amin(-1), flat.amax(-1)
 
 
+def scale_to_u16(x: torch.Tensor, mn: torch.Tensor,
+                 mx: torch.Tensor) -> torch.Tensor:
+    """``(x - mn) / (mx - mn) * 65535``, clipped to [0, 65535] and truncated
+    toward zero (the C cast to uint16, j2k_codec.h:523-526): float32
+    holding integers, constant fields at 0.  Three separately rounded
+    float32 operations, as the native host scaling (``scale_u16_ref``,
+    ebcc_cpu_encoder.cc), so the planes are bit-equal to its u16 output."""
+    rng = mx - mn
+    safe = torch.where(rng > 0, rng, 1.0)
+    y = (x - mn[:, None, None]) / safe[:, None, None] * U16_MAX
+    return torch.trunc(y.clamp(0.0, U16_MAX))
+
+
 def unscale(y: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
             recip: float = RECIP_U16) -> torch.Tensor:
     """``y / scale * (mx - mn) + mn`` as ``fma(y, recip * (mx - mn), mn)``

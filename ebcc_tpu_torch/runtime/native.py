@@ -1,16 +1,17 @@
 """ctypes loader for the shared native host runtime (``native/``).
 
 The port uses the same C++ host coder, zstd stage and CPU encoder/decoder
-as the JAX package, unchanged.  The library is built on first use:
+as the JAX package, unchanged.  On first use this module builds them from
+the ``native/`` sources with the Makefile's flags into
+``ebcc_tpu_torch/build/`` (:mod:`.build`: keyed on the sources and flags,
+built in a temporary directory and renamed into place, under a lock), and
+never writes into ``native/``: the JAX package's own ``make -C native``
+runs there.  The system ``zstd.h`` is used where the compiler finds one,
+else the declarations of ``csrc/compat/zstd.h`` (hosts that ship only the
+runtime ``libzstd.so.1``).  :func:`build_plugins` builds the three HDF5
+filter plugins the same way.
 
-* ``make -C native libebcc_host.so`` (the library target alone), which
-  needs the zstd development header;
-* where make fails (hosts that ship only the runtime ``libzstd.so.1``),
-  the same sources with the Makefile's flags, against the declarations in
-  ``csrc/compat/zstd.h``, into ``ebcc_tpu_torch/build/``.
-
-There is no pure-Python fallback: if neither build loads, :func:`lib`
-raises.
+There is no pure-Python fallback: if the build fails, :func:`lib` raises.
 """
 
 from __future__ import annotations
@@ -27,9 +28,17 @@ from . import build
 NATIVE_DIR = os.path.join(build.REPO_DIR, "native")
 _SOURCES = ("ebcc_host.cc", "ebcc_coder.cc", "ebcc_coder_fast.cc",
             "ebcc_cpu_decoder.cc", "ebcc_cpu_encoder.cc")
+# the codec objects the HDF5 plugins link (native/Makefile's codec_objs)
+_CODEC_SOURCES = ("ebcc_cpu_decoder.cc", "ebcc_cpu_encoder.cc",
+                  "ebcc_coder.cc", "ebcc_coder_fast.cc")
+# one plugin library per filter id: (name, defines) of native/Makefile
+_PLUGINS = (("libh5z_ebcc_tpu.so", []),
+            ("libh5z_ebcc_tpu_pw.so", ["-DEBCC_PLUGIN_POINTWISE"]),
+            ("libh5z_ebcc_tpu_emu.so", ["-DEBCC_PLUGIN_EMULATE"]))
 # native/Makefile's CXXFLAGS (value-safe: -ffp-contract=off, explicit fma)
 _CXXFLAGS = ["-O3", "-fPIC", "-std=c++17", "-ffp-contract=off",
              "-march=native"]
+_LDFLAGS = ["-shared", "-l:libzstd.so.1", "-lpthread"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,41 +67,71 @@ _SIGNATURES = {
 }
 
 
-def _build_with_compat_header() -> str:
-    srcs = [os.path.join(NATIVE_DIR, s) for s in _SOURCES]
-    hdrs = [os.path.join(build.CSRC_DIR, "compat", "zstd.h")]
-    flags = _CXXFLAGS + ["-I", os.path.dirname(hdrs[0])]
+@functools.cache
+def _zstd_header() -> list[str]:
+    """The zstd header to build against: [] where the compiler finds the
+    system ``zstd.h``, else ``csrc/compat/zstd.h``."""
+    r = subprocess.run(["g++", "-E", "-x", "c++", "-", "-o", os.devnull],
+                       input="#include <zstd.h>\n", capture_output=True,
+                       text=True)
+    return [] if r.returncode == 0 else [
+        os.path.join(build.CSRC_DIR, "compat", "zstd.h")]
 
-    def compile_into(tmp):
-        objs = [os.path.join(tmp, s + ".o") for s in _SOURCES]
-        # the word-parallel coder needs BMI2/POPCNT codegen; it is gated at
-        # run time, so only that file gets the flags (as in the Makefile)
-        build.run([["g++", *flags,
-                    *(["-mbmi2", "-mpopcnt"]
-                      if s == "ebcc_coder_fast.cc" else []),
-                    "-c", src, "-o", o]
-                   for s, src, o in zip(_SOURCES, srcs, objs)])
-        so = os.path.join(tmp, "libebcc_host.so")
-        build.run([["g++", *objs, "-o", so, "-shared", "-l:libzstd.so.1",
-                    "-lpthread"]])
-        return so
 
-    return build.cached_library(
-        "ebcc_host", build.source_key(srcs + hdrs, flags), compile_into)
+def _compile(srcs, tmp):
+    """Compile ``native/`` sources into ``tmp``, one g++ each, in
+    parallel; ``srcs`` are (file name, defines, object name) triples.
+    Returns the object paths."""
+    hdrs = _zstd_header()
+    flags = _CXXFLAGS + [f for h in hdrs for f in ("-I", os.path.dirname(h))]
+    objs = [os.path.join(tmp, f"{tag}.o") for _, _, tag in srcs]
+    # the word-parallel coder needs BMI2/POPCNT codegen; it is gated at
+    # run time, so only that file gets the flags (as in the Makefile)
+    build.run([["g++", *flags, *defs,
+                *(["-mbmi2", "-mpopcnt"]
+                  if s == "ebcc_coder_fast.cc" else []),
+                "-c", os.path.join(NATIVE_DIR, s), "-o", o]
+               for (s, defs, _), o in zip(srcs, objs)])
+    return objs
+
+
+def _key(names, extra=()) -> str:
+    return build.source_key(
+        [os.path.join(NATIVE_DIR, s) for s in names] + _zstd_header(),
+        _CXXFLAGS + _LDFLAGS + list(extra))
 
 
 def build_library() -> str:
     """Build (or find up to date) the host library; returns its path."""
-    r = subprocess.run(["make", "-C", NATIVE_DIR, "libebcc_host.so"],
-                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                       text=True)
-    if r.returncode == 0:
-        return os.path.join(NATIVE_DIR, "libebcc_host.so")
-    try:
-        return _build_with_compat_header()
-    except RuntimeError as e:
-        raise RuntimeError(f"native runtime build failed.\nmake:\n{r.stdout}"
-                           f"\ncompat build:\n{e}") from None
+    def compile_into(tmp):
+        objs = _compile([(s, [], s) for s in _SOURCES], tmp)
+        so = os.path.join(tmp, "libebcc_host.so")
+        build.run([["g++", *objs, "-o", so, *_LDFLAGS]])
+        return so
+
+    return build.cached_library("ebcc_host", _key(_SOURCES), compile_into)
+
+
+def build_plugins() -> str:
+    """Build (or find up to date) the three HDF5 filter plugins (ids
+    33076-33078) into one directory; returns it (the plugin path)."""
+    names = _CODEC_SOURCES + ("h5z_ebcc_tpu.cc",)
+
+    def compile_into(out):
+        tmp = os.path.join(out, ".obj")
+        os.makedirs(tmp)
+        codec = _compile([(s, [], s) for s in _CODEC_SOURCES], tmp)
+        shims = _compile([("h5z_ebcc_tpu.cc", defs, so)
+                          for so, defs in _PLUGINS], tmp)
+        build.run([["g++", shim, *codec, "-o", os.path.join(out, so),
+                    *_LDFLAGS] for shim, (so, _) in zip(shims, _PLUGINS)])
+        for o in codec + shims:
+            os.remove(o)
+        os.rmdir(tmp)
+
+    return build.cached_dir("h5z_plugins",
+                            _key(names, [f for _, d in _PLUGINS for f in d]),
+                            compile_into)
 
 
 @functools.cache

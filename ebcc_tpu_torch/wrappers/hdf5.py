@@ -175,8 +175,10 @@ FILTER_ID_POINTWISE = 33077  # pointwise [data ‖ error_bound] filter (ref 310)
 FILTER_ID_EMULATE = 33078    # compress+decompress-in-forward filter (ref 309)
 
 def _plugin_dir() -> str:
-    from ..runtime.native import NATIVE_DIR
-    return NATIVE_DIR
+    """The port's build of the three filter plugins (built on first use
+    from the ``native/`` sources into ``ebcc_tpu_torch/build/``)."""
+    from ..runtime.native import build_plugins
+    return build_plugins()
 
 
 def register_plugin_path(path: str | None = None):

@@ -4,7 +4,8 @@
 * ``compress`` writes the native encoder's bytes, and the JAX CLI's where
   no frame keeps a residual layer;
 * ``decompress`` writes ``ebcc_tpu_torch.decompress``'s array;
-* ``info`` and ``filter-string`` print the JAX CLI's JSON;
+* ``info`` and ``filter-string`` print the JAX CLI's JSON (but for the
+  plugin directory: the port's own build of the plugins);
 * ``sweep`` rows have the JAX CLI's keys and hold every bound;
 * ``python -m ebcc_tpu_torch`` imports no JAX, and its default device is
   the card.
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from ebcc_tpu import cli as jax_cli
+from ebcc_tpu.wrappers import hdf5 as jax_hdf5
 
 import ebcc_tpu_torch
 from ebcc_tpu_torch import cli
@@ -105,6 +107,12 @@ def test_decompress_and_info(npy, tmp_path, capsys):
 def test_filter_string_equals_jax(args, capsys):
     ours = json.loads(_run(cli.main, ["filter-string", *args], capsys))
     theirs = json.loads(_run(jax_cli.main, ["filter-string", *args], capsys))
+    # each package points HDF5 at its own build of the same plugins: the
+    # port's build directory, the JAX package's native/
+    pdir, jdir = ours.pop("plugin_dir"), theirs.pop("plugin_dir")
+    assert pdir == hdf5._plugin_dir() and jdir == jax_hdf5._plugin_dir()
+    assert ours.pop("cdo_usage") == theirs.pop("cdo_usage").replace(jdir,
+                                                                    pdir)
     assert ours == theirs
     if not args:  # the defaults: 721x1440, max_error 1e-2, base_cr 100
         params = hdf5.EBCCFilterParams(residual_opt=("max_error", 1e-2))

@@ -340,7 +340,11 @@ def test_imports_without_jax():
                "ebcc_tpu_torch.wrappers.hdf5, ebcc_tpu_torch.wrappers.zarr, "
                "ebcc_tpu_torch.models.forecast, "
                "ebcc_tpu_torch.models.video, ebcc_tpu_torch.ops.metrics, "
-               "ebcc_tpu_torch.utils.profiling; ")
+               "ebcc_tpu_torch.utils.profiling, "
+               "ebcc_tpu_torch.parallel.mesh, ebcc_tpu_torch.parallel.batch, "
+               "ebcc_tpu_torch.parallel.spatial, "
+               "ebcc_tpu_torch.ops.dwt_sharded, "
+               "ebcc_tpu_torch.scripts.launch_multihost; ")
     # with the JAX side blocked (an import of it raises), then unblocked
     # (none of it may be imported on the way)
     blocked = ("import sys; sys.modules['jax'] = None; "

@@ -469,3 +469,74 @@ def test_cuda_cli_compress_matches_native(card, tmp_path, capsys):
     cli.main(["decompress", str(blob_path), str(rec_path)])
     np.testing.assert_array_equal(np.load(rec_path),
                                   cpu_decoder.decompress(blob))
+
+
+def _cuda_mesh(n_data, n_space):
+    """Logical shards of cuda:0 (one card, one rank: exchanges are
+    copies)."""
+    from ebcc_tpu_torch.parallel import mesh as pmesh
+    return pmesh.make_mesh(n_data, n_space,
+                           devices=["cuda:0"] * (n_data * n_space))
+
+
+@pytest.mark.parametrize("n_data,n_space", [(1, 4), (2, 4)],
+                         ids=["space4", "2x4"])
+def test_cuda_halo_dwt_equals_dense(card, n_data, n_space):
+    from ebcc_tpu_torch.ops import dwt_sharded as ds
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        0, 100, (2, 192, 160)).astype(np.float32)).to(card)
+    fwd, inv = ds.make_sharded_dwt2d(_cuda_mesh(n_data, n_space), 3)
+    per_shard = fwd(x)
+    ref = dwt.dwt2d_multi(x, 3)
+    assert per_shard.is_cuda
+    assert torch.equal(ds.to_canonical(per_shard, n_space, 3), ref)
+    assert torch.equal(inv(per_shard), dwt.idwt2d_multi_ref(ref, 3))
+
+
+def test_cuda_sharded_codecs_equal_dense_and_native(card):
+    """ShardedCodec (data 2) and SpatialShardedCodec (data 2 x space 2) on
+    logical shards of cuda:0: the dense codec's selections, native's
+    containers."""
+    from ebcc_tpu_torch import api
+    from ebcc_tpu_torch.parallel.batch import ShardedCodec, compress_sharded
+    from ebcc_tpu_torch.parallel.spatial import SpatialShardedCodec
+    h, w = 256, 160
+    data = _field(4, h, w, seed=3)
+    cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.5, base_cr=100,
+                     max_batch=4)
+    tgt = torch.full((4,), 0.5, device=card)
+    dense = FrameCodec(h, w, cfg, card).encode_error_bounded(
+        torch.from_numpy(data).to(card), tgt, 1e-6)
+    native_blob = cpu_encoder.compress(data, cfg)
+    assert compress_sharded(data, cfg, _cuda_mesh(2, 1)) == native_blob
+    for sc in (ShardedCodec(h, w, cfg, _cuda_mesh(2, 1)),
+               SpatialShardedCodec(h, w, cfg, _cuda_mesh(2, 2))):
+        res = sc.encode_error_bounded(torch.from_numpy(data).to(card), tgt,
+                                      1e-6)
+        for f in ("base_coef", "bs_q", "ks_q", "km_q", "mbits_q", "segs_q",
+                  "bs_pure", "ks_pure", "km_pure", "mbits_pure",
+                  "segs_pure", "skip_residual", "resid_feasible"):
+            assert torch.equal(getattr(res, f), getattr(dense, f)), f
+        assert api.compress(data, cfg, codec=sc) == native_blob
+
+
+def test_cuda_packer_equals_native(card):
+    spec = bp.CoderSpec(96, 160, 4, 14, 8)
+    rng = np.random.default_rng(6)
+    coef = (rng.standard_normal((3, 96, 160)) * np.exp(rng.uniform(
+        0, 7, (3, 96, 160)))).astype(np.int32)
+    c = torch.from_numpy(coef).to(card)
+    counts = bp.segment_counts(bp.analyze(c, spec), spec)
+    trunc = bp.candidate_bits(counts, spec)[:, 6, 5].long()
+    words, _, max_step = bp.encode_batch(c, trunc, spec,
+                                         int(trunc.max()) // 32 + 1)
+    arena = native.coder_encode_batch(coef, trunc.cpu().numpy(), 4, 14, 8)
+    streams = [bp.words_to_bytes(words[i], trunc[i]) for i in range(3)]
+    for i, s in enumerate(streams):
+        assert s == arena[i, :len(s)].tobytes()
+    rec = bp.decode_batch(words, trunc, max_step, spec)
+    ref = native.coder_decode_batch(streams, trunc.cpu().numpy(),
+                                    max_step.cpu().numpy(), 96, 160, 4, 14,
+                                    8, np.full(3, -1), np.zeros(3))
+    np.testing.assert_array_equal(rec.cpu().numpy().view(np.uint32),
+                                  ref.view(np.uint32))

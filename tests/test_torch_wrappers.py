@@ -9,13 +9,17 @@ package's, on the CPU.
 * ``write_filtered_dataset`` stores chunks byte-equal to the plugin's own
   plain write (``create_filtered_dataset`` + ``dset[...] = data``, the
   native encoder), which read back through the plugin within the bound;
+  the plugins are the port's build, in its build directory: building
+  them and the host library leaves the ``native/`` sources untouched;
 * the zarr codec keeps the JAX package's id and import guard;
 * ``video.available()`` agrees with the JAX package's.
 """
 
+import ctypes
 import dataclasses
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -27,12 +31,11 @@ from ebcc_tpu.wrappers import zarr as jax_zarr
 
 from ebcc_tpu_torch.codec.config import EBCCConfig, ResidualMode
 from ebcc_tpu_torch.models import video
+from ebcc_tpu_torch.runtime import build, native
 from ebcc_tpu_torch.wrappers import hdf5, zarr
 
 h5py = pytest.importorskip("h5py")
 
-_PLUGIN = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "native", "libh5z_ebcc_tpu.so")
 
 
 def _field(n, h, w, seed=0):
@@ -71,7 +74,13 @@ def test_filter_ids_and_attribute_key_equal_jax():
     for name in ("FILTER_ID", "FILTER_ID_POINTWISE", "FILTER_ID_EMULATE",
                  "_ATTR"):
         assert getattr(hdf5, name) == getattr(jax_hdf5, name)
-    assert hdf5._plugin_dir() == jax_hdf5._plugin_dir()
+    # the port builds the plugins of the JAX package's plugin directory
+    # (native/, which the port never writes) into its own build directory
+    ours, theirs = hdf5._plugin_dir(), jax_hdf5._plugin_dir()
+    assert os.path.dirname(ours) == build.BUILD_DIR != theirs
+    assert sorted(os.listdir(ours)) == ["libh5z_ebcc_tpu.so",
+                                        "libh5z_ebcc_tpu_emu.so",
+                                        "libh5z_ebcc_tpu_pw.so"]
 
 
 CFG_KW = dict(mode=ResidualMode.RELATIVE_ERROR, error=0.009, base_cr=50,
@@ -110,8 +119,6 @@ def test_write_dataset_reads_in_the_other_package(writer, tmp_path):
     assert np.all(np.abs(rec - data).max(axis=(1, 2)) / rng <= 0.009)
 
 
-@pytest.mark.skipif(not os.path.exists(_PLUGIN),
-                    reason="HDF5 filter plugin not built (make -C native)")
 def test_filtered_chunks_equal_the_plugin_write(tmp_path):
     err = 0.2
     data = _field(2, 96, 160, seed=4)
@@ -135,6 +142,31 @@ def test_filtered_chunks_equal_the_plugin_write(tmp_path):
     assert rec.dtype == np.float32
     assert float(np.abs(rec - data).max()) <= err
     np.testing.assert_array_equal(one, rec[1])
+
+
+def test_native_builds_leave_the_sources_untouched(tmp_path, monkeypatch):
+    """The port's loader builds the host library and the plugins from the
+    ``native/`` sources into its build directory; the source directory's
+    listing and mtimes stay as they were (here a copy of it, so that the
+    JAX package's own ``make -C native`` in other processes cannot
+    interfere)."""
+    src = tmp_path / "native"
+    shutil.copytree(native.NATIVE_DIR, src,
+                    ignore=shutil.ignore_patterns("*.o", "*.so"))
+    monkeypatch.setattr(native, "NATIVE_DIR", str(src))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+
+    def listing():
+        return {p.name: p.stat().st_mtime_ns for p in src.iterdir()}
+
+    before = listing()
+    lib = native.build_library()
+    plugins = native.build_plugins()
+    assert listing() == before
+    assert os.path.dirname(os.path.dirname(lib)) == str(tmp_path / "build")
+    assert os.path.dirname(plugins) == str(tmp_path / "build")
+    assert len(os.listdir(plugins)) == 3
+    assert ctypes.CDLL(lib).ebcc_zstd_bound(1) > 0
 
 
 def test_wrappers_default_to_cuda(monkeypatch, tmp_path):
