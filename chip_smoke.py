@@ -45,6 +45,15 @@ bench.py):
   launcher ``python -m ebcc_tpu_torch.scripts.launch_multihost --local 1``
   as a subprocess (NCCL, world size 1); ``codec=`` with
   ``encode_backend="cpu"`` refused;
+* the measuring entry points of ``ebcc_tpu_torch/scripts/``:
+  ``python -m ebcc_tpu_torch.scripts.bench`` as a subprocess (its bound
+  and its CR against the main path's), then in process (each counted):
+  ``profile_stages`` on the main path's first batch of 16 (its container
+  against the main path's), ``profile_transforms`` and ``roofline`` at
+  B = 16, ``mask_ab`` at the bench config (both rules against the native
+  encoder) and at the union phase's (union against that phase's frames),
+  and ``scaling_bench``'s mesh mode on 1, 2 and 4 logical shards of
+  cuda:0 (the same containers at every count, and the main path's);
 
 and the probe path, ``python -m ebcc_tpu_torch.scripts.idwt_probe`` at
 [1, 768, 1472] and [16, 768, 1472]: the five primitive probes of
@@ -94,13 +103,10 @@ def card_line() -> str:
 
 
 def bench_frames(n: int, seed: int = 0) -> np.ndarray:
-    """bench.py's synthetic 721x1440 recipe (no ERA5 file in the repo)."""
-    y, x = np.mgrid[0:H, 0:W]
-    base = (260 + 25 * np.sin(y / H * np.pi) *
-            np.cos(x / W * 2 * np.pi)).astype(np.float32)
-    rng = np.random.default_rng(seed)
-    return np.stack([base + rng.normal(0, 0.05, base.shape).astype(
-        np.float32) for _ in range(n)])
+    """bench.py's synthetic 721x1440 recipe (no ERA5 file in the repo), as
+    the port's bench entry point makes it."""
+    from ebcc_tpu_torch.scripts.common import bench_frames as frames
+    return frames(n, H, W, seed)
 
 
 def synthetic_spread(seed: int = 1) -> np.ndarray:
@@ -1518,6 +1524,127 @@ def main() -> int:
         raise AssertionError("codec= with encode_backend='cpu' did not "
                              "raise")
 
+    # ---------------- the measuring entry points ----------------
+    from ebcc_tpu_torch.scripts import mask_ab as mask_ab_cli
+    from ebcc_tpu_torch.scripts import profile_stages as stages_cli
+    from ebcc_tpu_torch.scripts import profile_transforms as transforms_cli
+    from ebcc_tpu_torch.scripts import roofline as roofline_cli
+    from ebcc_tpu_torch.scripts import scaling_bench as scaling_cli
+
+    frames_main = container.unpack_blob(blob)
+
+    def as_json(d):
+        return json.dumps(d, default=float)
+
+    phase("bench: python -m ebcc_tpu_torch.scripts.bench as a subprocess "
+          f"(EBCC_BENCH_BATCH={BATCH}: 2 batches of 721x1440, MAX_ERROR "
+          f"{ERROR}, base_cr 100)")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "ebcc_tpu_torch.scripts.bench"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600,
+        env={**os.environ, "EBCC_BENCH_BATCH": str(BATCH),
+             "EBCC_BENCH_MODE": "device"})
+    t_bench = time.perf_counter() - t0
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    if r.returncode or len(lines) != 1:
+        print(r.stdout[-4000:], r.stderr[-4000:])
+        raise AssertionError("the bench failed or printed no JSON line")
+    benched = json.loads(lines[0])
+    print("\n".join(ln for ln in r.stdout.splitlines()
+                    if not ln.startswith("{")))
+    print(f"bench JSON line: {lines[0]}")
+    print(f"bench: {benched['value']:.6g} grid-points/s (encode "
+          f"{benched['wall_encode_s']!r} s, decode "
+          f"{benched['wall_decode_s']!r} s), device-only encode "
+          f"{benched['device_encode_pts_per_s']:.6g} pts/s, CR "
+          f"{benched['cr']!r} (main path {cr!r}), maxerr "
+          f"{benched['maxerr']!r}; subprocess wall {t_bench:.1f} s with the "
+          f"start-up {tag}")
+    if benched["maxerr"] > ERROR or benched["cr"] != cr or \
+            benched["frames"] != N_FRAMES:
+        raise AssertionError("bench: bound, CR or frames differ from the "
+                             "main path")
+
+    phase(f"profile_stages at B = {BATCH} in process (the main path's first "
+          "batch)")
+    (st, st_blob), launches_stages, t_stages = drive(
+        "profile_stages", lambda: stages_cli.profile_stages(data[:BATCH],
+                                                            "cuda"))
+    print(f"profile_stages: {as_json(st)}")
+    if container.unpack_blob(st_blob) != frames_main[:BATCH] or \
+            st["max_err"] > ERROR:
+        raise AssertionError("profile_stages: frames differ from the main "
+                             "path's first batch, or the bound failed")
+    print(f"profile_stages: {BATCH}/{BATCH} frames equal to the main path's; "
+          f"encode stages {st['total_enc']!r} s (device encode "
+          f"{st['1_device_encode_search']!r} s, enqueued in "
+          f"{st['1a_encode_enqueue']!r} s; coefficient d2h "
+          f"{st['3a_coef_d2h_bytes']} B at {st['3a_coef_d2h_gbps']:.3f} GB/s, "
+          f"pinned {st['3a_coef_d2h_pinned_gbps']!r} GB/s), decode stages "
+          f"{st['total_dec']!r} s; wall {t_stages:.3f} s {tag}")
+
+    phase(f"profile_transforms at [{BATCH}, 768, 1472] in process")
+    pt, launches_transforms, _ = drive(
+        "profile_transforms",
+        lambda: transforms_cli.profile_transforms(BATCH, device="cuda"))
+    print(f"profile_transforms: {as_json(pt)}")
+    if not all(np.isfinite(v) and v > 0 for k, v in pt.items()
+               if k not in ("shape", "device", "card", "timing")):
+        raise AssertionError("profile_transforms: a time is not positive")
+
+    phase(f"roofline at B = {BATCH} in process")
+    rf, launches_roofline, _ = drive(
+        "roofline", lambda: roofline_cli.roofline(BATCH, device="cuda"),
+        (fe.KERNEL, idwt.KERNEL))
+    print(f"roofline: {as_json(rf)}")
+    if not all(np.isfinite(v) and v > 0 for k, v in rf.items()
+               if k not in ("device_kind", "card", "timing")):
+        raise AssertionError("roofline: a value is not positive")
+
+    phase(f"mask_ab at the bench config ({BATCH} frames), then at the union "
+          "phase's (pure-base fallback off, base quantile 1e-3)")
+    (ab_rows, ab_summary, ab_blobs), launches_mask_ab, _ = drive(
+        "mask_ab", lambda: mask_ab_cli.mask_ab(data[:BATCH], "cuda"))
+    for rule in mask_ab_cli.RULES:
+        print(f"mask_ab {rule}: {as_json(ab_rows[rule])}")
+        same_as_native(ab_blobs[rule], cpu_encoder.compress(
+            data[:BATCH], dataclasses.replace(cfg, mask_search=rule)),
+            f"mask_ab {rule}")
+    print(f"mask_ab summary: {as_json(ab_summary)} {tag}")
+    os.environ["EBCC_DISABLE_PURE_JP2_FALLBACK"] = "1"
+    try:
+        ab_rows_u, ab_summary_u, ab_blobs_u = mask_ab_cli.mask_ab(
+            data[:BATCH], "cuda", qbase=1e-3)
+    finally:
+        del os.environ["EBCC_DISABLE_PURE_JP2_FALLBACK"]
+    for rule in mask_ab_cli.RULES:
+        print(f"mask_ab {rule} (fallback off, q 1e-3): "
+              f"{as_json(ab_rows_u[rule])}")
+    print(f"mask_ab summary (fallback off, q 1e-3): {as_json(ab_summary_u)} "
+          f"{tag}")
+    if container.unpack_blob(ab_blobs_u["union"]) != \
+            container.unpack_blob(ublob)[:BATCH]:
+        raise AssertionError("mask_ab union: frames differ from the union "
+                             "phase's")
+    print(f"mask_ab union (fallback off, q 1e-3): {BATCH}/{BATCH} frames "
+          "equal to the union phase's")
+
+    phase("scaling_bench mesh mode on 1, 2 and 4 logical shards of cuda:0 "
+          "(2 frames a shard)")
+    (sc_rows, sc_blobs), launches_scaling, _ = drive(
+        "scaling_bench", lambda: scaling_cli.run_mesh_mode(
+            [1, 2, 4], 2, device="cuda", logical=True))
+    print(json.dumps({"caveat": scaling_cli.LOGICAL_CAVEAT}))
+    for row in sc_rows:
+        print(f"scaling_bench: {as_json(row)}")
+    if container.unpack_blob(sc_blobs[4]) != frames_main[:8]:
+        raise AssertionError("scaling_bench: frames differ from the main "
+                             "path's")
+    print("scaling_bench: the containers agree across 1, 2 and 4 shards, "
+          f"and the 8 frames of 4 shards equal the main path's {tag}")
+
     phase(f"timings {tag}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1643,7 +1770,13 @@ def main() -> int:
                 "launches_forecast_path": launches_forecast[name],
                 "launches_sharded_path": launches_sharded[name],
                 "launches_spatial_path": launches_spatial[name],
-                "launches_packer_path": launches_packer[name]}
+                "launches_packer_path": launches_packer[name],
+                "launches_profile_stages_path": launches_stages[name],
+                "launches_profile_transforms_path":
+                    launches_transforms[name],
+                "launches_roofline_path": launches_roofline[name],
+                "launches_mask_ab_path": launches_mask_ab[name],
+                "launches_scaling_path": launches_scaling[name]}
 
     def entry(name, source, replaces, err, key, bnd):
         return {"name": name, "route": "cuda",

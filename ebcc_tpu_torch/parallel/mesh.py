@@ -15,7 +15,9 @@ copy between shards of one rank, ``dist.batch_isend_irecv`` between
 ranks, its operations posted in one order on both sides.  Gathering the
 per-row results of the data axis across ranks uses
 ``dist.all_gather_object``.  Without ``torch.distributed`` initialised the
-process is rank 0 of 1, and every shard is its own.
+process is rank 0 of 1, and every shard is its own.  A mesh, like every
+entry point of the port, is on the cards unless the CPU is named: with no
+card and no ``devices`` it raises rather than run on the CPU.
 """
 
 from __future__ import annotations
@@ -45,16 +47,16 @@ def world_size() -> int:
 
 def local_devices() -> list[torch.device]:
     """This rank's devices: every visible card of a CUDA rank (a rank of
-    the NCCL backend, or a process with a card and no process group), else
-    the CPU."""
-    if dist.is_initialized():
-        cuda = dist.get_backend() == "nccl"
-    else:
-        cuda = torch.cuda.is_available()
-    if cuda:
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    the NCCL backend, or a process with no process group), the CPU of a
+    gloo rank.  Without a process group a card is required: a CPU mesh is
+    asked for by name (``make_mesh(devices=["cpu"])``)."""
+    if dist.is_initialized() and dist.get_backend() != "nccl":
+        return [torch.device("cpu")]
+    if not torch.cuda.is_available():
+        raise RuntimeError("a mesh of the visible cards was requested but "
+                           "CUDA is not available; pass devices=['cpu']")
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
 
 
 class SpaceAxis:
@@ -172,8 +174,9 @@ def make_mesh(n_data: int | None = None, n_space: int = 1,
 
     ``devices``: :class:`Shard` entries (the whole mesh, any rank's), or
     this rank's devices (each may repeat: logical shards), which every rank
-    contributes in rank order; None is :func:`local_devices`.  ``n_data``
-    defaults to as many rows of ``n_space`` as the shards fill."""
+    contributes in rank order; None is :func:`local_devices` (the cards;
+    it raises without one).  ``n_data`` defaults to as many rows of
+    ``n_space`` as the shards fill."""
     devices = local_devices() if devices is None else list(devices)
     if all(isinstance(s, Shard) for s in devices):
         shards = [Shard(s.rank, torch.device(s.device)) for s in devices]
@@ -289,9 +292,10 @@ def init_distributed(coordinator_address: str | None = None,
     Explicit arguments win; otherwise the coordinator is the
     ``JAX_COORDINATOR_ADDRESS`` or ``COORDINATOR_ADDRESS`` variable, and
     the process count and id ``WORLD_SIZE`` and ``RANK``.  ``device``: this
-    rank's device (default: the card when one is visible, else the CPU);
-    a CUDA rank joins with NCCL (and makes its card current), a CPU rank
-    with gloo.  ``timeout`` (s) bounds the join and every collective.
+    rank's device (default ``"cuda"``, which raises without a card; a CPU
+    rank is asked for by ``device="cpu"``); a CUDA rank joins with NCCL
+    (and makes its card current), a CPU rank with gloo.  ``timeout`` (s)
+    bounds the join and every collective.
     Returns True when the process group was initialised, False for a
     standalone run (no address).  Errors propagate: a half-joined run must
     fail loudly, not fall back to a single process."""
@@ -304,10 +308,11 @@ def init_distributed(coordinator_address: str | None = None,
         num_processes = int(os.environ["WORLD_SIZE"])
     if process_id is None:
         process_id = int(os.environ["RANK"])
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' requested but CUDA is not "
+                               "available; pass device='cpu'")
         torch.cuda.set_device(device)
     url = (coordinator_address if "://" in coordinator_address
            else f"tcp://{coordinator_address}")

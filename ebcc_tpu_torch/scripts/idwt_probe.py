@@ -29,15 +29,14 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
 
 from ..ops import dwt
 from ..ops import idwt_probe as ip
+from .common import card_line, mean_seconds
 
 BATCHES, HEIGHT, WIDTH, REPS = (1, 16), 768, 1472, 20
 
@@ -52,39 +51,6 @@ ROWS = [("p0_elementwise", "probe_elementwise"),
         ("q1_reshape_interleave", "probe_row_pairs"),
         ("q2_one_level", 1),
         ("q3_full_multi", 5)]
-
-
-def card_line(device: torch.device) -> str | None:
-    """nvidia-smi's ``name, power.limit`` of the card, or the device name
-    where nvidia-smi cannot be run; None on the CPU."""
-    if device.type != "cuda":
-        return None
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader", f"--id={device.index or 0}"],
-            capture_output=True, text=True, check=True).stdout.strip()
-    except (OSError, subprocess.CalledProcessError):
-        return torch.cuda.get_device_name(device) + ", power limit not read"
-
-
-def mean_seconds(fn, reps: int, device: torch.device) -> float:
-    """Mean seconds of ``fn()`` over ``reps`` calls after one warm call: CUDA
-    events on a card, the host clock on the CPU."""
-    fn()
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t0) / reps
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize(device)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize(device)
-    return start.elapsed_time(end) / 1e3 / reps
 
 
 def run(device: torch.device, batches=BATCHES, height: int = HEIGHT,

@@ -34,7 +34,6 @@ import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 
 PKG_PARENT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -56,6 +55,7 @@ def worker(args, local_rank: int) -> int:
     from ..codec.config import EBCCConfig, ResidualMode
     from ..parallel import mesh as pmesh
     from ..parallel.batch import ShardedCodec
+    from .common import bench_frames
 
     dev = _device(args, local_rank)
     if not pmesh.init_distributed(args.coordinator, args.num_processes,
@@ -66,14 +66,8 @@ def worker(args, local_rank: int) -> int:
         mesh = pmesh.make_mesh(devices=[dev] * args.devices_per_proc)
         ndev = mesh.shape["data"]
         h, w = args.size
-        y, x = np.mgrid[0:h, 0:w]
-        base = (260 + 25 * np.sin(y / h * np.pi) *
-                np.cos(x / w * 2 * np.pi)).astype(np.float32)
         b = max(1, args.frames // ndev) * ndev
-        rng = np.random.default_rng(0)
-        data = torch.from_numpy(np.stack([
-            base + rng.normal(0, 0.05, (h, w)).astype(np.float32)
-            for _ in range(b)]))
+        data = torch.from_numpy(bench_frames(b, h, w))
         target = torch.full((b,), args.error)
         cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=args.error,
                          max_batch=b)

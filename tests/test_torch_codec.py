@@ -344,7 +344,13 @@ def test_imports_without_jax():
                "ebcc_tpu_torch.parallel.mesh, ebcc_tpu_torch.parallel.batch, "
                "ebcc_tpu_torch.parallel.spatial, "
                "ebcc_tpu_torch.ops.dwt_sharded, "
-               "ebcc_tpu_torch.scripts.launch_multihost; ")
+               "ebcc_tpu_torch.scripts.launch_multihost, "
+               "ebcc_tpu_torch.scripts.common, ebcc_tpu_torch.scripts.bench, "
+               "ebcc_tpu_torch.scripts.profile_stages, "
+               "ebcc_tpu_torch.scripts.profile_transforms, "
+               "ebcc_tpu_torch.scripts.roofline, "
+               "ebcc_tpu_torch.scripts.mask_ab, "
+               "ebcc_tpu_torch.scripts.scaling_bench; ")
     # with the JAX side blocked (an import of it raises), then unblocked
     # (none of it may be imported on the way)
     blocked = ("import sys; sys.modules['jax'] = None; "

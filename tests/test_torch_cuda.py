@@ -540,3 +540,20 @@ def test_cuda_packer_equals_native(card):
                                     8, np.full(3, -1), np.zeros(3))
     np.testing.assert_array_equal(rec.cpu().numpy().view(np.uint32),
                                   ref.view(np.uint32))
+
+
+def test_cuda_profile_stages_container_is_compress(card):
+    """The stage-by-stage profile of a batch of 2 bench frames on the card
+    writes ``compress``'s container (and the native encoder's), within the
+    bound, with the coefficient planes' fetch measured both ways."""
+    from ebcc_tpu_torch.scripts import common, profile_stages
+    from ebcc_tpu_torch.scripts.bench import bench_config
+    data = common.bench_frames(2)
+    t, blob = profile_stages.profile_stages(data, "cuda")
+    cfg = bench_config(2)
+    assert blob == ebcc_tpu_torch.compress(data, cfg, device="cuda")
+    assert blob == cpu_encoder.compress(data, cfg)
+    assert t["max_err"] <= 0.5 and t["device"] == "cuda"
+    assert t["3a_coef_d2h_bytes"] == 2 * 768 * 1472 * 4
+    assert t["3a_coef_d2h_pinned_gbps"] > 0
+    assert t["1_device_encode_search"] >= t["1a_encode_enqueue"] > 0

@@ -12,7 +12,8 @@ native encoder.
   and ``compress_sharded`` the native encoder's containers;
 * the refusals: an unshardable geometry, levels that would need clamping
   with ``codec=``, ``codec=`` with ``encode_backend="cpu"``;
-* ``init_distributed`` without an address is a standalone run;
+* ``init_distributed`` without an address is a standalone run; without
+  a card the default mesh and the default rank raise (no CPU fallback);
 * two gloo processes (this file's ``__main__``) form 2 x 2 meshes across
   the process boundary, the data axis on one, the space axis on the
   other: both encodes equal the dense codec's, and ``compress_sharded``
@@ -273,11 +274,19 @@ def test_compress_codec_refusals(stack, mesh42):
 
 
 def test_init_distributed_standalone(monkeypatch):
+    """Without an address the run is standalone; without a card neither
+    the default mesh nor a default rank falls to the CPU: the CPU is asked
+    for by name."""
     for var in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS"):
         monkeypatch.delenv(var, raising=False)
     assert pmesh.init_distributed() is False
     assert pmesh.world_size() == 1 and pmesh.rank() == 0
-    mesh = pmesh.make_mesh()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pmesh.make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pmesh.init_distributed("localhost:1", 1, 0)
+    mesh = pmesh.make_mesh(devices=["cpu"])
     assert mesh.shape == {"data": 1, "space": 1}
     assert mesh.devices == [[torch.device("cpu")]]
 
