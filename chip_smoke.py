@@ -54,6 +54,17 @@ bench.py):
   encoder) and at the union phase's (union against that phase's frames),
   and ``scaling_bench``'s mesh mode on 1, 2 and 4 logical shards of
   cuda:0 (the same containers at every count, and the main path's);
+* the twelve user and experiment drivers of ``ebcc_tpu_torch/scripts/``
+  in process through ``main(argv)`` (each counted; their sum is
+  ``launches_drivers_path``), on .npy stacks of the bench recipe (a
+  frame, 4 frames, 16 for ``compression_sweep``, 8 for
+  ``run_predictive`` with the forecaster trained 150 steps), and
+  ``simple_example`` also as a subprocess at its default frame: every
+  bound held, every MAX_ERROR / RELATIVE_ERROR size the native
+  encoder's, every DirectCompressor size the phase's own, compare_codecs
+  PASS, the stripe study's ``chosen`` the codec's own selection's bits;
+  a driver whose ffmpeg, h5py or matplotlib is missing says NOT RUN and
+  runs the part that needs none;
 
 and the probe path, ``python -m ebcc_tpu_torch.scripts.idwt_probe`` at
 [1, 768, 1472] and [16, 768, 1472]: the five primitive probes of
@@ -536,6 +547,330 @@ def hdf5_phase(data, blob, cfg, dev, tmpdir, tag):
     print(f"HDF5: write_dataset / read_dataset within the bound, "
           f"{len(frames)} filtered chunks equal to the blob's frames and "
           f"read through the plugin within the bound {tag}")
+
+
+# depths of the user scripts' inputs: frames of the 4-frame stack, the
+# sweep and the predictive sequence (721x1440, the bench recipe's first
+# frames)
+DRIVER_STACK, DRIVER_SWEEP, DRIVER_SEQ = 4, 16, 8
+# scripts whose bound is per point launch K1's target-field variant
+# (K1p); the others its scalar one (K1s)
+POINTWISE_DRIVERS = ("simple_example", "pressure_levels_example",
+                     "delta_compression_test", "pointwise_sweep",
+                     "run_predictive")
+
+
+def driver_run(module, argv) -> str:
+    """``module.main(argv)`` in this process; fails unless it returns 0.
+    Its output, echoed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    out = buf.getvalue()
+    print(out, end="")
+    if rc != 0:
+        raise AssertionError(f"{module.__name__} exited {rc}")
+    return out
+
+
+def json_lines(out: str) -> list:
+    return [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+
+
+def netcdf_like(path, frames):
+    """An HDF5 file laid out as netCDF4 writes one: ``t2m`` with time,
+    lat and lon dimension scales attached (DIMENSION_LIST object
+    references) and a units attribute."""
+    import h5py
+    n, h, w = frames.shape
+    with h5py.File(path, "w") as f:
+        f.attrs["Conventions"] = "CF-1.6"
+        scales = [f.create_dataset("time", data=np.arange(n, dtype="i4")),
+                  f.create_dataset("lat", data=np.linspace(90, -90, h)),
+                  f.create_dataset("lon", data=np.linspace(0, 360, w,
+                                                           endpoint=False))]
+        v = f.create_dataset("t2m", data=frames)
+        v.attrs["units"] = "K"
+        for i, s in enumerate(scales):
+            s.make_scale(s.name.strip("/"))
+            v.dims[i].attach_scale(s)
+
+
+def drivers_phase(dev, drive, tag, h=H, w=W, steps=150):
+    """The twelve drivers of ``ebcc_tpu_torch/scripts/`` on ``dev``, each
+    in process through ``main(argv)`` (one counted run each), on .npy
+    stacks of the bench recipe, and ``simple_example`` also as a
+    subprocess.  Each row that reports violations or a max error holds its
+    bound; each MAX_ERROR / RELATIVE_ERROR size is the native encoder's;
+    each DirectCompressor size is this phase's own ``compress_batch`` on
+    the same frames and bounds (to the digits the script prints);
+    compare_codecs says PASS; the stripe study's ``chosen`` is the
+    codec's own pure selection's bits.  Drivers whose optional package
+    (ffmpeg, h5py, matplotlib) is missing say NOT RUN and run the part
+    that needs none.  Returns ({driver: (counts, wall s)}, the summed
+    counts, {"K1s": n, "K1p": n})."""
+    import importlib.util
+    import shutil
+    from ebcc_tpu_torch import DirectCompressor, EBCCConfig, ResidualMode
+    from ebcc_tpu_torch import api
+    from ebcc_tpu_torch.codec import container
+    from ebcc_tpu_torch.codec.pipeline import FrameCodec
+    from ebcc_tpu_torch.runtime import cpu_encoder
+    from ebcc_tpu_torch.scripts import (common, compare_codecs,
+                                        compression_sweep,
+                                        delta_compression_test,
+                                        era5_video_compress, nc_to_ebcc_h5,
+                                        plot_error_map, pointwise_sweep,
+                                        pressure_levels_example,
+                                        run_predictive, scan_cratio,
+                                        simple_example,
+                                        stripe_adaptive_study)
+    from ebcc_tpu_torch.wrappers.hdf5 import EBCCFilterParams
+    on = ["--device", dev.type]
+    runs = {}
+
+    def run(name, fn):
+        out, counts, wall = drive(f"driver {name}", fn)
+        runs[name] = (counts, wall)
+        return out
+
+    def native_bytes(frames, error, qbase=None, **kw):
+        """The native encoder's size at MAX_ERROR ``error``, base_cr 100."""
+        cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=error,
+                         base_cr=100, **kw)
+        return len(cpu_encoder.compress(frames, cfg, qbase=qbase))
+
+    def direct_sizes(frames, eb, base_cr=100):
+        """This phase's own DirectCompressor on the same slices."""
+        own = DirectCompressor(base_cr=base_cr, device=dev.type)
+        return [len(b) for b, _ in own.compress_batch(frames, eb)]
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"driver check failed: {what}")
+
+    stack = common.bench_frames(DRIVER_SWEEP, h, w)
+    clean = common.base_frame(h, w)[0]
+    tmp = tempfile.mkdtemp(prefix="ebcc_drivers_")
+    saved_env = os.environ.get(common.REFERENCE_FRAME_ENV)
+    try:
+        def path(name):
+            return os.path.join(tmp, name)
+        for name, arr in (("frame.npy", stack[0]),
+                          ("stack4.npy", stack[:DRIVER_STACK]),
+                          ("stack16.npy", stack),
+                          ("seq8.npy", stack[:DRIVER_SEQ]),
+                          ("clean.npy", clean)):
+            np.save(path(name), arr)
+        frame, stack4, seq = stack[0], stack[:DRIVER_STACK], stack[:DRIVER_SEQ]
+
+        # 1. simple_example: the reference frame named by the environment
+        # in process, the default synthetic frame in a subprocess
+        os.environ[common.REFERENCE_FRAME_ENV] = path("clean.npy")
+        out = run("simple_example",
+                  lambda: driver_run(simple_example, on))
+        del os.environ[common.REFERENCE_FRAME_ENV]
+        eb = np.full_like(clean, 0.01 * (clean.max() - clean.min()))
+        size = direct_sizes(clean[None], eb[None])[0]
+        check(f"compressed: {size} B," in out and
+              out.rstrip().endswith("violations: 0"),
+              f"simple_example: {size} B and 0 violations")
+        if (h, w) == (H, W):
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "ebcc_tpu_torch.scripts.simple_example",
+                 *([] if dev.type == "cuda" else on)],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                capture_output=True, text=True, timeout=300)
+            print(r.stdout, end="")
+            check(r.returncode == 0 and f"compressed: {size} B," in r.stdout,
+                  f"the simple_example subprocess: {r.stderr[-2000:]}")
+            print(f"simple_example as a subprocess: the same {size} B, "
+                  f"{time.perf_counter() - t0:.1f} s with its start-up "
+                  f"{tag}")
+
+        # 2. pressure_levels_example: every printed row is the own
+        # compressor's, level by level
+        out = run("pressure_levels_example", lambda: driver_run(
+            pressure_levels_example, [path("stack4.npy"), *on]))
+        eb = np.stack([np.full_like(f, 0.01 * (f.max() - f.min()))
+                       for f in stack4])
+        sizes = direct_sizes(stack4, eb)
+        want = [f"level {i:2d}: CR={f.nbytes / s:7.1f}x  violations=0"
+                for i, (f, s) in enumerate(zip(stack4, sizes))]
+        want.append(f"total: CR={stack4.nbytes / sum(sizes):.1f}x")
+        check(out.splitlines() == want, "pressure_levels_example's rows")
+
+        # 3. delta_compression_test: both methods PASS, the standard row's
+        # CR the own compressor's
+        out = run("delta_compression_test", lambda: driver_run(
+            delta_compression_test, [path("stack4.npy"), "--error",
+                                     str(ERROR), *on]))
+        cr = stack4.nbytes / sum(direct_sizes(stack4, np.full_like(
+            stack4, ERROR)))
+        check(out.count("violations=0") == 2 and out.count("PASS") == 2 and
+              out.startswith(f"standard   CR={cr:7.1f}x"),
+              "delta_compression_test's rows")
+
+        # 4. pointwise_sweep: each row's CR the own compressor's
+        out = run("pointwise_sweep", lambda: driver_run(
+            pointwise_sweep, [path("frame.npy"), "--out", path("pw.csv"),
+                              *on]))
+        rows = json_lines(out)
+        rng = float(frame.max() - frame.min())
+        for r in rows:
+            eb = np.full_like(frame, r["scale"] * 0.01 * rng)
+            size = direct_sizes(frame[None], eb[None], r["base_cr"])[0]
+            check(r["violations"] == 0 and r["cr"] == frame.nbytes / size,
+                  f"pointwise_sweep row {r}")
+        check(len(rows) == 6, "pointwise_sweep: 6 rows")
+
+        # 5. compression_sweep: lossless rows, then EBCC rows whose CR is
+        # the native encoder's
+        errs = (ERROR, 1.0)
+        out = run("compression_sweep", lambda: driver_run(
+            compression_sweep, [path("stack16.npy"), "--errors",
+                                *map(str, errs), "--out", path("sweep.csv"),
+                                *on]))
+        with open(path("sweep.csv")) as f:
+            print(f.read(), end="")
+        rows = json_lines(out)
+        check([r["error_target"] for r in rows] == list(errs),
+              "compression_sweep's EBCC rows")
+        for r in rows:
+            check(r["max_error"] <= r["error_target"] and
+                  r["cr"] == stack.nbytes / native_bytes(
+                      stack, r["error_target"]),
+                  f"compression_sweep row {r} against native")
+
+        # 6. scan_cratio: each fixed quantile's CR the native encoder's at
+        # that quantile, and the optimiser's at the quantile it picked
+        out = run("scan_cratio", lambda: driver_run(
+            scan_cratio, [path("frame.npy"), "--out", path("scan.csv"),
+                          *on]))
+        rows = json_lines(out)
+        qs = [*scan_cratio.FIXED_QS,
+              float(rows[-1]["method"][len("optimized(q="):-1])]
+        for q, r in zip(qs, rows):
+            check(r["max_error"] <= ERROR and
+                  r["cr"] == frame.nbytes / native_bytes(frame, ERROR, q),
+                  f"scan_cratio row {r} against native")
+
+        # 7. compare_codecs: PASS, the EBCC row the native encoder's
+        out = run("compare_codecs", lambda: driver_run(
+            compare_codecs, [path("frame.npy"), *on]))
+        ebcc = json_lines(out)[0]
+        check(": PASS (" in out and ebcc["max_error"] <= ERROR and
+              ebcc["bytes"] == native_bytes(frame, ERROR, max_batch=1),
+              "compare_codecs: PASS and the native encoder's bytes")
+
+        # 8. run_predictive with the trained forecaster
+        out = run("run_predictive", lambda: driver_run(
+            run_predictive, [path("seq8.npy"), "--model", "trained",
+                             "--train-steps", str(steps), *on]))
+        trained, row = json_lines(out)
+        eb = np.full_like(seq, 0.01 * (seq.max() - seq.min()))
+        check(row["violations"] == 0 and row["direct_cr"] ==
+              seq.nbytes / sum(direct_sizes(seq, eb)),
+              "run_predictive: 0 violations and the own direct CR")
+
+        # 9. era5_video_compress: the video row needs ffmpeg
+        if era5_video_compress.video.available():
+            out = run("era5_video_compress", lambda: driver_run(
+                era5_video_compress, ["--input", path("stack4.npy"),
+                                      "--steps", str(DRIVER_STACK),
+                                      "--json", *on]))
+            vrow, erow = json.loads(out[out.index("["):])
+            bound = vrow["max_abs_error"]
+        else:
+            print("era5_video_compress NOT RUN: ffmpeg is not installed "
+                  "on this machine; its EBCC row alone at MAX_ERROR "
+                  f"{ERROR}")
+            bound = ERROR
+            erow = run("era5_video_compress",
+                       lambda: era5_video_compress.ebcc_row(stack4, ERROR,
+                                                            dev.type))
+            print(json.dumps(erow))
+        check(erow["max_abs_error"] <= bound and erow["compressed_bytes"] ==
+              native_bytes(stack4, bound, max_batch=DRIVER_STACK),
+              "era5_video_compress: the EBCC row against native")
+
+        # 10. nc_to_ebcc_h5 (relative_error 0.009): the chunks are the
+        # native encoder's frames
+        params = EBCCFilterParams(base_cr=100, height=h, width=w,
+                                  data_dim=3, residual_opt=(
+                                      "relative_error_target", 0.009))
+        want = container.unpack_blob(cpu_encoder.compress(
+            stack4, params.to_config()))
+        if importlib.util.find_spec("h5py") is not None:
+            import h5py
+            netcdf_like(path("in.nc"), stack4)
+            run("nc_to_ebcc_h5", lambda: driver_run(
+                nc_to_ebcc_h5, [path("in.nc"), path("out.h5"), *on]))
+            with h5py.File(path("out.h5"), "r") as f:
+                got = [bytes(f["t2m"].id.read_direct_chunk((i, 0, 0))[1])
+                       for i in range(DRIVER_STACK)]
+        else:
+            print("nc_to_ebcc_h5 NOT RUN: h5py is not installed on this "
+                  "machine; its device route's compress alone")
+            got = container.unpack_blob(run("nc_to_ebcc_h5", lambda:
+                                            api.compress(stack4,
+                                                         params.to_config(),
+                                                         device=dev.type)))
+        check(got == want, "nc_to_ebcc_h5: chunks against native")
+
+        # 11. plot_error_map: the drawing needs matplotlib
+        def error_map_run():
+            if importlib.util.find_spec("matplotlib") is not None:
+                driver_run(plot_error_map, [path("frame.npy"), "--out",
+                                            path("map.png"), *on])
+                check(os.path.getsize(path("map.png")) > 0,
+                      "plot_error_map wrote no PNG")
+            else:
+                print("plot_error_map NOT RUN: matplotlib is not installed "
+                      "on this machine; error_map alone")
+            return plot_error_map.error_map(frame, ERROR, dev.type)
+        err, cr = run("plot_error_map", error_map_run)
+        check(float(np.abs(err).max()) <= ERROR and
+              cr == frame.nbytes / native_bytes(frame, ERROR, max_batch=1),
+              "plot_error_map: the bound and the native encoder's CR")
+        print(f"plot_error_map: max |err| {float(np.abs(err).max())!r}, "
+              f"CR {cr!r}")
+
+        # 12. stripe_adaptive_study: chosen is the codec's own selection's
+        out = run("stripe_adaptive_study", lambda: driver_run(
+            stripe_adaptive_study, [path("clean.npy"), *on]))
+        noisy = (clean + np.random.default_rng(0).normal(
+            0, 0.05, clean.shape)).astype(np.float32)
+        for line, (fr, mode, err_) in zip(out.splitlines(), (
+                (clean, ResidualMode.MAX_ERROR, 0.5),
+                (noisy, ResidualMode.MAX_ERROR, 0.5),
+                (clean, ResidualMode.RELATIVE_ERROR, 0.009))):
+            tgt = (err_ * (fr.max() - fr.min())
+                   if mode == ResidualMode.RELATIVE_ERROR else err_)
+            codec = FrameCodec(h, w, EBCCConfig(mode=mode, error=err_,
+                                                base_cr=100, max_batch=1),
+                               dev)
+            x = torch.from_numpy(fr[None]).to(dev)
+            res = codec.encode_error_bounded(
+                x, torch.full((1,), tgt, dtype=torch.float32, device=dev),
+                1e-6)
+            bits = int(res.base_bits_pure[0])
+            check(f": chosen {bits} " in line or "infeasible" in line,
+                  f"stripe study: {line!r} against the codec's {bits}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if saved_env is None:
+            os.environ.pop(common.REFERENCE_FRAME_ENV, None)
+        else:
+            os.environ[common.REFERENCE_FRAME_ENV] = saved_env
+
+    names = list(next(iter(runs.values()))[0])
+    total = {k: sum(c[k] for c, _ in runs.values()) for k in names}
+    k1 = {"K1p": sum(runs[d][0]["fused_eval"] for d in POINTWISE_DRIVERS),
+          "K1s": sum(c["fused_eval"] for d, (c, _) in runs.items()
+                     if d not in POINTWISE_DRIVERS)}
+    return runs, total, k1
 
 
 def main() -> int:
@@ -1645,6 +1980,23 @@ def main() -> int:
     print("scaling_bench: the containers agree across 1, 2 and 4 shards, "
           f"and the 8 frames of 4 shards equal the main path's {tag}")
 
+    phase(f"the user and experiment drivers of ebcc_tpu_torch/scripts/ on "
+          f"cuda at {H}x{W}, in process (each counted), the bench recipe: "
+          f"{DRIVER_STACK}-frame stacks, {DRIVER_SWEEP} frames for "
+          f"compression_sweep, {DRIVER_SEQ} for run_predictive")
+    t0 = time.perf_counter()
+    driver_runs, launches_drivers, k1_drivers = drivers_phase(dev, drive, tag)
+    t_drivers = time.perf_counter() - t0
+    print(json.dumps({"drivers": {
+        name: {"wall_s": wall,
+               "launches": {k.name: counts[k.name] for k in kernels}}
+        for name, (counts, wall) in driver_runs.items()},
+        "launches_drivers_path": {k.name: launches_drivers[k.name]
+                                  for k in kernels},
+        "fused_eval_by_target": k1_drivers, "phase_s": t_drivers,
+        "card": card}))
+    print(f"drivers: all 12 held, {t_drivers:.1f} s {tag}")
+
     phase(f"timings {tag}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1776,7 +2128,8 @@ def main() -> int:
                     launches_transforms[name],
                 "launches_roofline_path": launches_roofline[name],
                 "launches_mask_ab_path": launches_mask_ab[name],
-                "launches_scaling_path": launches_scaling[name]}
+                "launches_scaling_path": launches_scaling[name],
+                "launches_drivers_path": launches_drivers[name]}
 
     def entry(name, source, replaces, err, key, bnd):
         return {"name": name, "route": "cuda",
@@ -1828,9 +2181,10 @@ def main() -> int:
              resid={"ms": times[("K2", "resid")][0],
                     "device_ms": k2_device["resid"],
                     "bound_ms": layer_bound("K2", "resid")[0]}),
-        entry("fused_eval", "fused_eval.cu",
-              "ebcc_tpu/ops/pallas_eval.py:219", max(k1_err, k1p_err),
-              k1p_key, k1_bound),
+        dict(entry("fused_eval", "fused_eval.cu",
+                   "ebcc_tpu/ops/pallas_eval.py:219", max(k1_err, k1p_err),
+                   k1p_key, k1_bound),
+             launches_drivers_path_by_target=k1_drivers),
         dict(entry("idwt", "idwt.cu", "scripts/pallas_idwt_probe2.py:106",
                    idwt_err, idwt_key, idwt_bound),
              also_replaces="scripts/pallas_idwt_probe.py:122"),

@@ -1,5 +1,5 @@
-"""What the measuring entry points share: the bench recipe, the device
-rule, the card's name and the clocks.
+"""What the port's entry points share: the bench recipe, the reference
+frame, the device rule, the card's name and the clocks.
 
 Every entry point runs on ``cuda`` unless ``--device cpu`` is given; asking
 for ``cuda`` without a card raises (:func:`resolve_device`), as the API and
@@ -11,6 +11,7 @@ names the device it ran on.
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
 import time
 
@@ -21,6 +22,11 @@ from .. import api
 
 BENCH_H, BENCH_W = 721, 1440
 BENCH_ERROR, BENCH_BASE_CR = 0.5, 100
+# the environment variable that names the reference frame: the ERA5 fixture
+# (721x1440 float32 .npy) that the JAX drivers read from a fixed path.  The
+# port reads nothing outside its checkout unless asked, so a driver reads
+# the frame only where this names it.
+REFERENCE_FRAME_ENV = "EBCC_REFERENCE_FRAME"
 
 
 def resolve_device(name) -> torch.device:
@@ -29,14 +35,28 @@ def resolve_device(name) -> torch.device:
 
 
 def add_device_args(p: argparse.ArgumentParser, data: bool = True) -> None:
-    """The flags every measuring entry point takes: ``--device`` and, where
-    the JAX script reads a frame from a file, ``--data``."""
+    """The flags every entry point takes: ``--device`` and, where the
+    measuring entry points' JAX script reads a frame from a file,
+    ``--data``."""
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the codec runs (cuda raises without a card)")
     if data:
         p.add_argument("--data", default=None, metavar="FRAME.npy",
                        help="a 2-D float32 frame the frames are made from "
                             "(default: the synthetic recipe)")
+
+
+def reference_path() -> str | None:
+    """The file ``$EBCC_REFERENCE_FRAME`` names, or None where it is unset."""
+    return os.environ.get(REFERENCE_FRAME_ENV) or None
+
+
+def reference_or_synthetic() -> np.ndarray:
+    """The reference frame where one is named, else the synthetic 721x1440
+    field of :func:`base_frame` (the JAX drivers' fallback)."""
+    path = reference_path()
+    return (np.load(path).astype(np.float32) if path
+            else base_frame()[0])
 
 
 def base_frame(h: int = BENCH_H, w: int = BENCH_W,

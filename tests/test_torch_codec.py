@@ -350,7 +350,19 @@ def test_imports_without_jax():
                "ebcc_tpu_torch.scripts.profile_transforms, "
                "ebcc_tpu_torch.scripts.roofline, "
                "ebcc_tpu_torch.scripts.mask_ab, "
-               "ebcc_tpu_torch.scripts.scaling_bench; ")
+               "ebcc_tpu_torch.scripts.scaling_bench, "
+               "ebcc_tpu_torch.scripts.simple_example, "
+               "ebcc_tpu_torch.scripts.pressure_levels_example, "
+               "ebcc_tpu_torch.scripts.delta_compression_test, "
+               "ebcc_tpu_torch.scripts.pointwise_sweep, "
+               "ebcc_tpu_torch.scripts.compression_sweep, "
+               "ebcc_tpu_torch.scripts.scan_cratio, "
+               "ebcc_tpu_torch.scripts.compare_codecs, "
+               "ebcc_tpu_torch.scripts.run_predictive, "
+               "ebcc_tpu_torch.scripts.era5_video_compress, "
+               "ebcc_tpu_torch.scripts.nc_to_ebcc_h5, "
+               "ebcc_tpu_torch.scripts.plot_error_map, "
+               "ebcc_tpu_torch.scripts.stripe_adaptive_study; ")
     # with the JAX side blocked (an import of it raises), then unblocked
     # (none of it may be imported on the way)
     blocked = ("import sys; sys.modules['jax'] = None; "

@@ -8,6 +8,8 @@ port's dependencies are installed:
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -557,3 +559,45 @@ def test_cuda_profile_stages_container_is_compress(card):
     assert t["3a_coef_d2h_bytes"] == 2 * 768 * 1472 * 4
     assert t["3a_coef_d2h_pinned_gbps"] > 0
     assert t["1_device_encode_search"] >= t["1a_encode_enqueue"] > 0
+
+
+def test_cuda_drivers_match_cpu_and_native(card, tmp_path, monkeypatch,
+                                           capsys):
+    """Three drivers of ``ebcc_tpu_torch/scripts/`` at their default
+    device, the card, at 96x160: simple_example's size is the CPU's,
+    compression_sweep's CR the native encoder's, and the stripe study's
+    numbers the CPU's; each launches K2, K1 and idwt."""
+    from ebcc_tpu_torch.models.direct import DirectCompressor
+    from ebcc_tpu_torch.scripts import (common, compression_sweep,
+                                        simple_example,
+                                        stripe_adaptive_study)
+    frames = common.bench_frames(3, H, W)
+    frame_path, stack_path = tmp_path / "frame.npy", tmp_path / "stack.npy"
+    np.save(frame_path, frames[0])
+    np.save(stack_path, frames)
+    kernels = (l0.KERNEL, fe.KERNEL, idwt.KERNEL)
+    for k in kernels:
+        k.launches = 0
+    monkeypatch.setenv(common.REFERENCE_FRAME_ENV, str(frame_path))
+    capsys.readouterr()
+    assert simple_example.main([]) == 0
+    out = capsys.readouterr().out
+    eb = np.full_like(frames[0], 0.01 * (frames[0].max() - frames[0].min()))
+    size = len(DirectCompressor(base_cr=100, device="cpu").compress(
+        frames[0], eb))
+    assert f"compressed: {size} B," in out and "violations: 0" in out
+    csv_path = str(tmp_path / "sweep.csv")
+    assert compression_sweep.main([str(stack_path), "--errors", "0.5",
+                                   "--out", csv_path]) == 0
+    [row] = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.5, base_cr=100.0)
+    assert row["max_error"] <= 0.5
+    assert row["cr"] == frames.nbytes / len(cpu_encoder.compress(frames,
+                                                                 cfg))
+    got = stripe_adaptive_study.measure(frames[0], ResidualMode.MAX_ERROR,
+                                        0.5)
+    assert got == stripe_adaptive_study.measure(
+        frames[0], ResidualMode.MAX_ERROR, 0.5, "cpu")
+    assert all(k.launches > 0 for k in kernels), [k.launches
+                                                   for k in kernels]
