@@ -882,6 +882,7 @@ def main() -> int:
     print(card)
 
     import ebcc_tpu_torch
+    from ebcc_tpu_torch import api as et_api
     from ebcc_tpu_torch import (DeltaCompressor, DirectCompressor,
                                 EBCCConfig, PredictiveCompressor,
                                 RateOptimizedCompressor, ResidualMode,
@@ -1260,7 +1261,7 @@ def main() -> int:
         for i in (i for i, s in enumerate(same) if not s):
             lo = i // BATCH * BATCH
             hq = _scale_u16_host(data[lo:lo + BATCH])
-            res = codec_.encode_error_bounded_hostq(
+            res, _ = codec_.encode_error_bounded_hostq(
                 _upload_u16(hq[0], dev), torch.from_numpy(hq[1]).to(dev),
                 torch.from_numpy(hq[2]).to(dev),
                 torch.from_numpy(targets(lo, hq[3])).to(dev), 1e-6)
@@ -1513,7 +1514,7 @@ def main() -> int:
     mblobs, launches_multi, t_multi = drive(
         "multi-q", lambda: ebcc_tpu_torch.compress_multi_q(data, qs, cfg,
                                                            device="cuda"))
-    t_per_q = []
+    t_per_q, mnative = [], {}
     for q, mb in zip(qs, mblobs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1522,8 +1523,8 @@ def main() -> int:
         if single != mb:
             raise AssertionError(f"multi-q blob at q={q} differs from "
                                  "compress(qbase=q)")
-        same_as_native(mb, cpu_encoder.compress(data, cfg, qbase=q),
-                       f"multi-q q={q}")
+        mnative[q] = cpu_encoder.compress(data, cfg, qbase=q)
+        same_as_native(mb, mnative[q], f"multi-q q={q}")
         both_decoders(mb, data, ERROR, f"multi-q q={q}")
         print(f"q={q}: equal to compress(qbase={q}); CR "
               f"{data.nbytes / len(mb):.2f}; frames keeping a residual "
@@ -1531,6 +1532,171 @@ def main() -> int:
     print(f"multi-q encode wall {t_multi:.3f} s; the {len(qs)} compress "
           f"walls {sum(t_per_q):.3f} s "
           f"({', '.join(f'{t:.3f}' for t in t_per_q)}) {tag}")
+
+    phase(f"transfer forms ({N_FRAMES} frames {H}x{W}, batches of {BATCH}): "
+          "each layer's form, its bytes and copy time on four paths; the "
+          "containers with the fetch forced to the int32 planes; compress "
+          "and decompress at prefetch_batches 0 and 2")
+    int32_bytes = BATCH * hp * wp * 4  # one batch's base planes
+    letter = {"sparse": "S", "pack8": "8", "pack16": "6", "coef": "I"}
+
+    def frame_forms(resn, layer):
+        """Each frame's smallest exact form alone, one letter a frame
+        (S sparse, 8 u8, 6 u16, I int32)."""
+        return "".join(letter[et_api._form(
+            {f"{layer}_{f}_ok": resn[f"{layer}_{f}_ok"][i:i + 1]
+             for f in ("sparse", "pack8", "pack16")}, layer)]
+            for i in range(len(resn["mn"])))
+
+    def copy_ms(tensors):
+        """Best of 3 of the api's pinned copy of ``tensors``, waited on."""
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            et_api._D2H(tensors).get(next(iter(tensors)))
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3
+
+    def forms_report(label, cfg_, qs_, n_, ebound=None):
+        """The first ``n_`` frames through the multi-quantile encode at
+        ``qs_`` and the api's fetch, batch by batch: for each candidate
+        and layer the drain fetches, the batch's form, each frame's, max
+        nsig, the bucket, the bytes beside the int32 planes', and the
+        pinned copy of each (ms); then the api's fetch wall of the
+        batch."""
+        frames_ = data[:n_]
+        eb_ = et_api._pointwise_bound(frames_, cfg_, ebound)
+        codec_ = FrameCodec(H, W, cfg_, dev)
+        for lo in range(0, n_, BATCH):
+            hi = min(lo + BATCH, n_)
+            res_list, metas = codec_.encode_error_bounded_multi_hostq(
+                *et_api._batch_inputs(frames_, lo, hi, cfg_, eb_, dev), qs_)
+            rds = [r._asdict() for r in res_list]
+            rds[0]["_meta"] = et_api._D2H(dict(enumerate(metas)))
+            resn_all = et_api._fetch_small(rds, codec_, cfg_)
+            t0 = time.perf_counter()
+            et_api._start_transfers(rds, resn_all)
+            fetched = {}
+            for k, (rd, resn) in enumerate(zip(rds, resn_all)):
+                for layer in ("base", "resid")[k > 0:]:
+                    if layer == "base" or et_api._keeps_resid(resn):
+                        fetched[k, layer] = et_api._fetch_coef(resn, rd,
+                                                               layer)
+            wall = (time.perf_counter() - t0) * 1e3
+            for (k, layer), f in fetched.items():
+                resn, rd = resn_all[k], rds[k]
+                form = et_api._form(resn, layer)
+                names = ([f"{layer}_sp_delta", f"{layer}_sp_val"]
+                         if form == "sparse" else [f"{layer}_{form}"])
+                arrays = f[1:3] if f[0] == "sparse" else f[1:2]
+                coef = rd[f"{layer}_coef"]
+                print(f"{label} frames {lo}-{hi - 1} q={qs_[k]} {layer}: "
+                      f"form {form}, by frame {frame_forms(resn, layer)}; "
+                      f"max nsig {int(resn[f'{layer}_nsig'].max())} of "
+                      f"cap {getattr(codec_, f'{layer}_sparse_k')}, bucket "
+                      f"{arrays[0].shape[1] if form == 'sparse' else None}; "
+                      f"{sum(a.nbytes for a in arrays)} B fetched vs "
+                      f"{coef.numel() * 4} B of int32 planes; copy "
+                      f"{copy_ms({n: rd[n] for n in names}):.3f} ms vs int32 "
+                      f"{copy_ms({'coef': coef}):.3f} ms {tag}")
+            print(f"{label} frames {lo}-{hi - 1}: the api's fetch of "
+                  f"{len(fetched)} layer form(s), started and waited on: "
+                  f"{wall:.3f} ms {tag}")
+
+    def forced_int32(fn):
+        """``fn()`` with the api's fetch forced to the int32 rung."""
+        orig = et_api._fetch_coef
+        et_api._fetch_coef = lambda res, rd, layer: (
+            "dense", et_api._host(rd, f"{layer}_coef"), None)
+        try:
+            return fn()
+        finally:
+            et_api._fetch_coef = orig
+
+    def forms_equal(label, forms_blobs, forced_blobs, native_blobs):
+        for fb, ib, nb in zip(forms_blobs, forced_blobs, native_blobs):
+            if ib != fb:
+                raise AssertionError(f"{label}: the forced-int32 container "
+                                     "differs from the forms' container")
+            same_as_native(fb, nb, f"{label} (forms = forced int32)")
+
+    forms_report("MAX_ERROR", cfg, (1e-6,), N_FRAMES)
+    forms_equal("MAX_ERROR", [blob], [forced_int32(
+        lambda: ebcc_tpu_torch.compress(data, cfg, device="cuda"))], [nblob])
+    os.environ["EBCC_DISABLE_PURE_JP2_FALLBACK"] = "1"
+    try:
+        forms_report("residual", cfg, (1e-3,), BATCH)
+        rforced = forced_int32(lambda: ebcc_tpu_torch.compress(
+            data[:BATCH], cfg, device="cuda", qbase=1e-3))
+    finally:
+        del os.environ["EBCC_DISABLE_PURE_JP2_FALLBACK"]
+    forms_equal("residual", [rblob], [rforced], [rnative])
+    forms_report("POINTWISE", cfg_pw, (1e-6,), N_FRAMES, eb)
+    forms_equal("POINTWISE", [blob_pw], [forced_int32(
+        lambda: ebcc_tpu_torch.compress(data, cfg_pw, error_bound=eb,
+                                        device="cuda"))], [nblob_pw])
+    forms_report("multi-q", cfg, qs, N_FRAMES)
+    forms_equal("multi-q", mblobs, forced_int32(
+        lambda: ebcc_tpu_torch.compress_multi_q(data, qs, cfg,
+                                                device="cuda")),
+                [mnative[q] for q in qs])
+
+    # the forms' device work on the first batch: pack_small and sparsify
+    # against their run on the CPU, then their launches under the profiler
+    res0, meta0 = codec.encode_error_bounded_hostq(u_dev, mn_d, mx_d, tgt,
+                                                   1e-6)
+    low_b = torch.minimum(res0.bs_q, res0.bs_pure)
+    low_r = torch.where(res0.skip_residual, codec.resid.spec.nplanes,
+                        res0.bs_r)
+    for layer, ci_, step, low in (("base", ci, an.max_step, low_b),
+                                  ("resid", res0.resid_coef,
+                                   res0.max_step_r, low_r)):
+        on_card = codec._forms(layer, ci_, step, low)
+        on_cpu = codec._forms(layer, ci_.cpu(), step.cpu(), low.cpu())
+        differ = [f for f, v in on_card.items()
+                  if not torch.equal(v.cpu(), on_cpu[f])]
+        if differ:
+            raise AssertionError(f"{layer} forms on the card differ from "
+                                 f"the CPU's in {differ}")
+    if not torch.equal(codec._pack_meta(res0), meta0):
+        raise AssertionError("_pack_meta differs from the encode's meta")
+    print("pack_small / sparsify of both layers on the card equal to their "
+          "CPU run, field by field")
+    forms_k, _ = kernel_times(lambda: (
+        codec._forms("base", ci, an.max_step, low_b),
+        codec._forms("resid", res0.resid_coef, res0.max_step_r, low_r),
+        codec._pack_meta(res0)))
+    enc_k, _ = kernel_times(lambda: codec.encode_error_bounded_hostq(
+        u_dev, mn_d, mx_d, tgt, 1e-6))
+    print(f"the forms and the packed metadata of one batch: "
+          f"{sum(n for _, n in forms_k.values())} launches, device "
+          f"{ms_text(device_ms(forms_k))}, of the encode's "
+          f"{sum(n for _, n in enc_k.values())} launches and "
+          f"{ms_text(device_ms(enc_k))} {tag}")
+    del res0, meta0
+
+    walls = {0: [], 2: []}
+    for pf in (0, 2, 2, 0):
+        pcfg = dataclasses.replace(cfg, prefetch_batches=pf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pblob = ebcc_tpu_torch.compress(data, pcfg, device="cuda")
+        t_e = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prec = ebcc_tpu_torch.decompress(pblob, pcfg, device="cuda")
+        t_d = time.perf_counter() - t0
+        if pblob != blob or not np.array_equal(prec.view(np.uint32),
+                                               rec.view(np.uint32)):
+            raise AssertionError(f"prefetch_batches={pf}: other bytes or "
+                                 "frames than the main path's")
+        walls[pf].append((t_e, t_d))
+    for pf, ws in walls.items():
+        print(f"prefetch_batches={pf}: compress "
+              f"{', '.join(f'{e:.3f}' for e, _ in ws)} s, decompress "
+              f"{', '.join(f'{d:.3f}' for _, d in ws)} s of {N_FRAMES} "
+              f"frames; bytes and frames equal to the main path's {tag}")
+    print(f"(int32 planes of one base batch: {int32_bytes} B)")
 
     rqs = (1e-6, 1e-3)
     phase(f"DirectCompressor(rate_candidates={rqs}): compress_batch of 2 "
@@ -1709,9 +1875,10 @@ def main() -> int:
                   "mbits_pure", "segs_pure", "bs_r", "ks_r", "km_r",
                   "mbits_r", "segs_r")
     for label, (sc, dense, target, _, _, _) in sp_codecs.items():
-        ours = sc.encode_error_bounded_hostq(u_dev, mn_d, mx_d, target, 1e-6)
-        ref = dense.encode_error_bounded_hostq(u_dev, mn_d, mx_d, target,
-                                               1e-6)
+        ours, _ = sc.encode_error_bounded_hostq(u_dev, mn_d, mx_d, target,
+                                                1e-6)
+        ref, _ = dense.encode_error_bounded_hostq(u_dev, mn_d, mx_d, target,
+                                                  1e-6)
         differ = [f for f in sel_fields
                   if not torch.equal(getattr(ours, f), getattr(ref, f))]
         print(f"{label}, first batch: coefficients and selections "
@@ -1745,7 +1912,7 @@ def main() -> int:
     t0 = time.perf_counter()
     for lo, hi in ((0, BATCH), (BATCH, N_FRAMES)):
         hq = _scale_u16_host(data[lo:hi])
-        res = codec.encode_error_bounded_hostq(
+        res, _ = codec.encode_error_bounded_hostq(
             _upload_u16(hq[0], dev), torch.from_numpy(hq[1]).to(dev),
             torch.from_numpy(hq[2]).to(dev),
             torch.from_numpy(np.float32(ERROR) - hq[3]).to(dev), 1e-6)
@@ -1915,9 +2082,12 @@ def main() -> int:
     print(f"profile_stages: {BATCH}/{BATCH} frames equal to the main path's; "
           f"encode stages {st['total_enc']!r} s (device encode "
           f"{st['1_device_encode_search']!r} s, enqueued in "
-          f"{st['1a_encode_enqueue']!r} s; coefficient d2h "
-          f"{st['3a_coef_d2h_bytes']} B at {st['3a_coef_d2h_gbps']:.3f} GB/s, "
-          f"pinned {st['3a_coef_d2h_pinned_gbps']!r} GB/s), decode stages "
+          f"{st['1a_encode_enqueue']!r} s; coefficient d2h: base form "
+          f"{st['3a_form_base']}, residual {st['3a_form_resid']}, "
+          f"{st['3a_coef_d2h_bytes']} B (int32 planes "
+          f"{st['3a_coef_int32_bytes']} B) in {st['3a_coef_d2h']!r} s, the "
+          f"copy alone {st['3a_coef_d2h_pinned']!r} s; packing "
+          f"{st['3b_native_pack']!r} s), decode stages "
           f"{st['total_dec']!r} s; wall {t_stages:.3f} s {tag}")
 
     phase(f"profile_transforms at [{BATCH}, 768, 1472] in process")

@@ -17,6 +17,14 @@ frames.  Decode runs the native structural decoder on the host and the
 reconstruction on the device, or the whole native CPU decoder when
 ``config.decode_backend == "cpu"``.
 
+The device-to-host traffic is the JAX package's: the small fields cross
+in one packed int32 tensor, and each layer's coefficients in the smallest
+exact form its flags allow (sparse (delta, value) pairs trimmed to the
+populated prefix -> u8 -> u16 -> int32).  ``config.prefetch_batches``
+device batches stay in flight: each copy is ``non_blocking`` into pinned
+host memory, fenced by a CUDA event (:class:`_D2H`), and the host drains
+the oldest batch while later ones compute.
+
 The device is explicit: ``device="cuda"`` (the default) needs a CUDA
 device and raises without one; ``device="cpu"`` runs the same code with
 the kernels' plain torch versions.
@@ -32,7 +40,8 @@ import torch
 from .codec import container
 from .codec.config import (EBCCConfig, ResidualMode, base_error_quantile,
                            pure_fallback_disabled)
-from .codec.pipeline import COEF_FIELDS, FrameCodec
+from .codec import pipeline as _pipeline
+from .codec.pipeline import FrameCodec
 from .ops import bitplane as bp
 from .runtime import cpu_decoder
 from .runtime import native as _native
@@ -97,6 +106,41 @@ def _scale_u16_host(frames: np.ndarray):
     target is tightened by ``maxq`` because the device's error reference
     is the u16-dequantised field."""
     return _native.scale_u16_batch(frames)
+
+
+class _D2H:
+    """Device-to-host copies of one batch in flight, the counterpart of
+    the JAX package's ``copy_to_host_async``: each CUDA tensor is copied
+    ``non_blocking`` into pinned host memory, then one CUDA event is
+    recorded after the copies, and :meth:`get` waits on it before the
+    host reads (a read before the event completes would see stale bytes).
+    The pinned blocks come from torch's caching host allocator, which
+    hands a block out again only after the copies recorded on it have
+    completed.  Tensors on the CPU are taken as they are."""
+
+    def __init__(self, tensors: dict):
+        self.host, self.events = {}, []
+        devices = set()
+        for name, t in tensors.items():
+            if t.is_cuda:
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                buf.copy_(t, non_blocking=True)
+                devices.add(t.device)
+                t = buf
+            self.host[name] = t
+        for d in devices:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(d))
+            self.events.append(ev)
+
+    def ready(self) -> bool:
+        """Whether every copy has completed (never blocks)."""
+        return all(ev.query() for ev in self.events)
+
+    def get(self, name) -> np.ndarray:
+        for ev in self.events:
+            ev.synchronize()
+        return self.host[name].numpy()
 
 
 def _upload_u16(u: np.ndarray, device) -> torch.Tensor:
@@ -232,16 +276,19 @@ def compress(data, config: EBCCConfig | None = None, *, error_bound=None,
     resid_budget = (int(8 * h * w / config.residual_cr)
                     if config.mode == ResidualMode.SPARSIFICATION_FACTOR
                     else 0)
-    out_frames = []
-    for lo, hi in _batches(n, min(config.max_batch, n)):
+
+    def dispatch(lo, hi):
         u, mn, mx, target = _batch_inputs(frames, lo, hi, config, eb, dev)
         if config.mode in _ERROR_MODES:
-            res = codec.encode_error_bounded_hostq(u, mn, mx, target, qbase)
+            res, meta = codec.encode_error_bounded_hostq(u, mn, mx, target,
+                                                         qbase)
         else:
-            res = codec.encode_rate_targeted_hostq(u, mn, mx, base_budget,
-                                                   resid_budget)
-        out_frames += _host_stage([res], codec, config, h, w)[0]
-    return container.pack_blob(out_frames)
+            res, meta = codec.encode_rate_targeted_hostq(
+                u, mn, mx, base_budget, resid_budget)
+        return [res], [meta]
+
+    return container.pack_blob(
+        _encode_pipelined(n, dispatch, codec, config, h, w)[0])
 
 
 def compress_multi_q(data, qs, config: EBCCConfig | None = None, *,
@@ -265,13 +312,13 @@ def compress_multi_q(data, qs, config: EBCCConfig | None = None, *,
     eb = _pointwise_bound(frames, config, error_bound)
     n, h, w = frames.shape
     codec = FrameCodec(h, w, config, dev)
-    out_frames = [[] for _ in qs]
-    for lo, hi in _batches(n, min(config.max_batch, n)):
-        res_list = codec.encode_error_bounded_multi_hostq(
+
+    def dispatch(lo, hi):
+        return codec.encode_error_bounded_multi_hostq(
             *_batch_inputs(frames, lo, hi, config, eb, dev), qs)
-        for k, fr in enumerate(_host_stage(res_list, codec, config, h, w)):
-            out_frames[k] += fr
-    return [container.pack_blob(f) for f in out_frames]
+
+    return [container.pack_blob(f) for f in
+            _encode_pipelined(n, dispatch, codec, config, h, w)]
 
 
 def _cpu_encode(frames, config, error_bound, qbase) -> bytes:
@@ -288,32 +335,139 @@ def _cpu_encode(frames, config, error_bound, qbase) -> bytes:
                                 qbase=qbase)
 
 
-def _host_stage(res_list, codec, config, h, w) -> list[list[bytes]]:
-    """Selections of one device batch -> container frames, one list per
-    candidate of ``res_list`` (the results of one multi-quantile encode,
-    or a single result).  The candidates share their base layer: one base
-    arena covers every candidate's selection, except those of frames
-    decided pure, which emit only the pure variant."""
-    resn_all = []
-    for res in res_list:
-        resn = {k: v.cpu().numpy() for k, v in res._asdict().items()
-                if k not in COEF_FIELDS}
+def _encode_pipelined(n, dispatch, codec, config, h, w):
+    """The batches of ``n`` frames through the device and the host, with
+    ``config.prefetch_batches`` device batches in flight.
+
+    ``dispatch(lo, hi)`` enqueues frames [lo, hi) on the device: (one
+    :class:`EncodeResult` per candidate quantile, the packed metadata of
+    each).  The metadata's copy starts at once; when the oldest pending
+    batch is drained, every later one whose metadata has arrived is primed
+    first (its coefficient forms' copies start, so they overlap the
+    drain's host packing).  Returns one list of container frames per
+    candidate, in frame order."""
+    out, pending = None, []
+
+    def drain_oldest():
+        nonlocal out
+        entry = pending.pop(0)
+        for e in pending:
+            _prime(e, codec, config)
+        frames = _drain(entry, codec, config, h, w)
+        out = frames if out is None else [a + b for a, b in zip(out, frames)]
+
+    for lo, hi in _batches(n, min(config.max_batch, n)):
+        res_list, metas = dispatch(lo, hi)
+        rds = [r._asdict() for r in res_list]
+        rds[0]["_meta"] = _D2H(dict(enumerate(metas)))
+        pending.append((hi - lo, rds))
+        if len(pending) > config.prefetch_batches:
+            drain_oldest()
+    while pending:
+        drain_oldest()
+    return out
+
+
+def _unpack_meta(packed, nchunks):
+    """Inverse of ``FrameCodec._pack_meta``: ONE fetched int32 array [B,
+    N] -> the dict of the small EncodeResult fields (numpy arrays)."""
+    packed = np.asarray(packed)
+    out = {}
+    off = 0
+    segs_cols = 2 + 2 * nchunks
+    for name in _pipeline.EncodeResult._fields:
+        if name in _pipeline.DEFERRED_FIELDS:
+            continue
+        k = segs_cols if name.startswith("segs_") else 1
+        v = np.ascontiguousarray(packed[:, off:off + k])
+        off += k
+        if name in _pipeline.META_F32:
+            v = v.view(np.float32)
+        elif name in _pipeline.META_BOOL:
+            v = v != 0
+        out[name] = v[:, 0] if k == 1 else v
+    if off != packed.shape[1]:
+        raise RuntimeError("packed metadata layout mismatch")
+    return out
+
+
+def _fetch_small(rds, codec, config):
+    """The small-field dict of each candidate of one batch, from its
+    packed metadata (waiting on that copy), with the early pure decision."""
+    out = []
+    for k in range(len(rds)):
+        resn = _unpack_meta(rds[0]["_meta"].get(k), codec.base.spec.nchunks)
         resn["decided_pure"] = _decide_pure(resn, config.mode)
+        out.append(resn)
+    return out
+
+
+def _keeps_resid(resn) -> bool:
+    """Whether some frame keeps residual bits (its form must cross)."""
+    return not np.all(resn["const"] | resn["skip_residual"] |
+                      resn["decided_pure"])
+
+
+def _start_transfers(rds, resn_all):
+    """Begin the copy of each layer's chosen coefficient form (sparse
+    pairs trimmed to the populated prefix; the trimmed views replace the
+    full ones in the result dict, so :func:`_fetch_coef` takes the same
+    tensors): the shared base layer once, each candidate's residual layer
+    where some frame keeps residual bits.  One shot per batch."""
+    if "_forms" in rds[0]:
+        return
+    for k, (rd, resn) in enumerate(zip(rds, resn_all)):
+        layers = ("base",) if k == 0 else ()
+        if _keeps_resid(resn):
+            layers += ("resid",)
+        fetch = {}
+        for layer in layers:
+            form = _form(resn, layer)
+            if form == "sparse":
+                rd.update(_trim_sparse(rd, layer, resn[f"{layer}_nsig"]))
+                for f in ("sp_delta", "sp_val"):
+                    fetch[f"{layer}_{f}"] = rd[f"{layer}_{f}"]
+            else:
+                fetch[f"{layer}_{form}"] = rd[f"{layer}_{form}"]
+        rd["_forms"] = _D2H(fetch)
+
+
+def _prime(entry, codec, config):
+    """Non-blocking cross-batch prefetch: once a pending batch's metadata
+    has arrived, read its small fields and start its coefficient forms'
+    copies.  Never waits on an unfinished batch (that would serialise the
+    device's work with the host's)."""
+    _, rds = entry
+    if "_resn" in rds[0] or not rds[0]["_meta"].ready():
+        return
+    rds[0]["_resn"] = _fetch_small(rds, codec, config)
+    _start_transfers(rds, rds[0]["_resn"])
+
+
+def _drain(entry, codec, config, h, w) -> list[list[bytes]]:
+    """One device batch -> its container frames, one list per candidate.
+    The candidates share their base layer: one base arena covers every
+    candidate's selection, except those of frames decided pure, which
+    emit only the pure variant."""
+    n, rds = entry
+    resn_all = rds[0].pop("_resn", None)
+    if resn_all is None:
+        resn_all = _fetch_small(rds, codec, config)
+    for resn in resn_all:
         _check_plane_budget(resn, config)
-        resn_all.append(resn)
+    _start_transfers(rds, resn_all)
     r0 = resn_all[0]
     trunc_b = np.maximum.reduce(
         [_arena_bits(r0, "pure", r0["base_bits_pure"])] +
         [np.where(r["decided_pure"], 0, _arena_bits(r, "q", r["base_bits_q"]))
          for r in resn_all])
-    base_stream = _pack_layer_streams(codec, res_list[0], "base", trunc_b)
+    base_stream = _pack_layer_streams(r0, codec, rds[0], "base", trunc_b)
     out = []
-    for res, resn in zip(res_list, resn_all):
+    for rd, resn in zip(rds, resn_all):
         trunc_r = np.where(resn["skip_residual"] | resn["decided_pure"], 0,
                            _arena_bits(resn, "r", resn["resid_bits"]))
         streams = (base_stream,
-                   _pack_layer_streams(codec, res, "resid", trunc_r))
-        n = len(resn["mn"])
+                   _pack_layer_streams(resn, codec, rd, "resid", trunc_r))
         zblobs = _zstd_stage(resn, streams, n, config)
         out.append([_assemble_frame(resn, i, h, w, config, streams, zblobs)
                     for i in range(n)])
@@ -395,19 +549,80 @@ def _zstd_stage(res, streams, n, config):
                                                      config.zstd_level)))
 
 
-def _pack_layer_streams(codec, res, layer, trunc):
+def _sparse_bucket(kmax: int, kcap: int) -> int:
+    """Pairs fetched of a sparse form: ``kmax`` rounded up to a multiple of
+    8192 (at least 4096), at most the cap."""
+    if kmax <= 4096:
+        return min(kcap, 4096)
+    return min(kcap, -(-int(kmax) // 8192) * 8192)
+
+
+def _trim_sparse(rd, layer, counts) -> dict:
+    """One layer's sparse pair trimmed to the bucket covering max(nsig):
+    only the populated prefix crosses to the host."""
+    names = (f"{layer}_sp_delta", f"{layer}_sp_val")
+    k = _sparse_bucket(int(np.max(np.asarray(counts), initial=0)),
+                       rd[names[0]].shape[1])
+    return {nm: rd[nm][:, :k] for nm in names}
+
+
+def _form(res, layer) -> str:
+    """The smallest exact coefficient form of one layer over the batch:
+    "sparse" -> "pack8" -> "pack16" -> "coef" (int32)."""
+    for form in ("sparse", "pack8", "pack16"):
+        if res[f"{layer}_{form}_ok"].all():
+            return form
+    return "coef"
+
+
+def _host(rd, name) -> np.ndarray:
+    """A deferred field on the host: from the batch's started copy when it
+    holds it, else copied now."""
+    forms = rd.get("_forms")
+    if forms is not None and name in forms.host:
+        return forms.get(name)
+    return rd[name].cpu().numpy()
+
+
+def _fetch_coef(res, rd, layer):
+    """The smallest exact coefficient form of one layer on the host, as
+    ``("sparse", deltas, vals, counts, shifts)`` or ``("dense", plane,
+    shifts or None)`` for the native coder.  The exact rung is the int32
+    plane itself: the JAX package's f32 copy of it works around slow int32
+    fetches over its device link, and the native coder takes int32."""
+    form = _form(res, layer)
+    if form == "sparse":
+        rd.update(_trim_sparse(rd, layer, res[f"{layer}_nsig"]))
+        return ("sparse", _host(rd, f"{layer}_sp_delta"),
+                _host(rd, f"{layer}_sp_val"), res[f"{layer}_nsig"],
+                res[f"{layer}_shift"])
+    shifts = {"pack8": res[f"{layer}_shift8"], "pack16": res[f"{layer}_shift"],
+              "coef": None}[form]
+    return ("dense", _host(rd, f"{layer}_{form}"), shifts)
+
+
+def _pack_layer_streams(res, codec, rd, layer, trunc):
     """Entropy-pack one layer's (coefficients, truncation) pairs with the
-    native host coder.  Returns stream(i, bits, km=-1, segs=None): any
-    prefix of the embedded stream up to ``trunc[i]``, or — ``km >= 0``,
-    format v4 — the chunk-masked stream spliced out of the prefix arena
-    (``trunc[i]`` covers that plane's end)."""
+    native host coder, from the form :func:`_fetch_coef` fetches (``res``:
+    the small fields on the host, ``rd``: the device result).  Returns
+    stream(i, bits, km=-1, segs=None): any prefix of the embedded stream up
+    to ``trunc[i]``, or — ``km >= 0``, format v4 — the chunk-masked stream
+    spliced out of the prefix arena (``trunc[i]`` covers that plane's
+    end)."""
     spec = (codec.base if layer == "base" else codec.resid).spec
     if int(trunc.max(initial=0)) == 0:
         # no frame keeps bits of this layer: its coefficients stay put
         return lambda i, bits, km=-1, segs=None: b""
-    coef = getattr(res, f"{layer}_coef").cpu().numpy()
-    arena = _native.coder_encode_batch(coef, trunc, spec.group_levels,
-                                       spec.nplanes, spec.nchunks)
+    form = _fetch_coef(res, rd, layer)
+    geo = (spec.group_levels, spec.nplanes, spec.nchunks)
+    if form[0] == "sparse":
+        _, deltas, vals, counts, shifts = form
+        arena = _native.coder_encode_batch_sparse(
+            deltas, vals, counts, shifts, spec.height, spec.width, trunc,
+            *geo)
+    else:
+        _, coef, shifts = form
+        arena = _native.coder_encode_batch(coef, trunc, *geo, shifts=shifts)
 
     def raw(i, bits):
         return _mask_tail(arena[i, : (int(bits) + 7) // 8].tobytes(), bits)
@@ -586,12 +801,26 @@ def decompress(blob: bytes, config: EBCCConfig | None = None, *,
         nchunks=g0.nchunks, base_nplanes=g0.base_nplanes,
         residual_nplanes=g0.resid_nplanes)
     codec = FrameCodec(g0.h, g0.w, config, dev)
+    # config.prefetch_batches reconstructed batches in flight: the native
+    # decode of the next batch overlaps the recon and copy of the last
+    pending = []
+
+    def drain(entry):
+        # the frames are copied out, so each pinned block goes back to the
+        # allocator for a later batch instead of living until the return
+        idxs, copy = entry
+        rec = copy.get("rec")
+        for k, idx in enumerate(idxs):
+            out[idx] = rec[k].copy()
+
     for lo, hi in _batches(len(todo), min(config.max_batch, len(todo))):
         idxs = todo[lo:hi]
         recon, args = _device_batch(codec, metas, idxs)
-        rec = recon(*args).cpu().numpy()
-        for k, idx in enumerate(idxs):
-            out[idx] = rec[k]
+        pending.append((idxs, _D2H({"rec": recon(*args)})))
+        if len(pending) > config.prefetch_batches:
+            drain(pending.pop(0))
+    while pending:
+        drain(pending.pop(0))
     return np.stack(out)
 
 

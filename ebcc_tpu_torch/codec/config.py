@@ -57,11 +57,14 @@ class EBCCConfig:
     device); ``encode_backend`` the encoder (:func:`ebcc_tpu_torch.compress`:
     "cpu" is the native CPU encoder, "device" and "auto" the caller's
     device; the reference's tunnel routing of "auto" is not ported).
-    ``use_pallas_counts``, ``use_pallas_eval``, ``prefetch_batches`` and the
-    ``*_cap_bits_per_px`` fields steer parts of the JAX package this
-    package does not have: they are accepted (so configurations cross
-    between the packages) and not read.  The CUDA kernels run whenever the
-    tensors are on a CUDA device.
+    ``prefetch_batches``: the device batches that ``compress``,
+    ``compress_multi_q`` and ``decompress`` keep in flight while the host
+    drains the oldest (0: each batch runs start to finish before the next
+    is dispatched).  ``use_pallas_counts``,
+    ``use_pallas_eval`` and the ``*_cap_bits_per_px`` fields steer parts of
+    the JAX package this package does not have: they are accepted (so
+    configurations cross between the packages) and not read.  The CUDA
+    kernels run whenever the tensors are on a CUDA device.
     """
 
     mode: ResidualMode = ResidualMode.MAX_ERROR

@@ -26,6 +26,7 @@ import datetime
 import os
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -207,7 +208,7 @@ def frame_blocks(n: int, mesh: Mesh) -> list[tuple[int, int]]:
 
 
 def _tree(fn, v):
-    if torch.is_tensor(v):
+    if torch.is_tensor(v) or isinstance(v, np.ndarray):
         return fn(v)
     if isinstance(v, tuple) and hasattr(v, "_fields"):
         return type(v)(*(_tree(fn, x) for x in v))
@@ -239,18 +240,19 @@ def gather_frames(parts: dict, mesh: Mesh, device):
     """The inverse of :func:`split_frames` for tensors or (named) tuples
     and lists of tensors with a leading frame axis: every row's block in
     data order, concatenated on ``device``, on every rank (blocks of other
-    ranks arrive by ``dist.all_gather_object``)."""
+    ranks arrive by ``dist.all_gather_object``, as numpy arrays: torch's
+    own tensor pickling does not take every dtype, uint16 among them)."""
     merged = dict(parts)
     if world_size() > 1:
         every = [None] * world_size()
-        dist.all_gather_object(every, {d: _tree(lambda t: t.cpu(), v)
+        dist.all_gather_object(every, {d: _tree(lambda t: t.cpu().numpy(), v)
                                        for d, v in parts.items()})
         merged = {}
         for p in every:
             for d, v in p.items():
                 merged.setdefault(d, v)
-    return _cat([_tree(lambda t: t.to(device), merged[d])
-                 for d in sorted(merged)])
+    return _cat([_tree(lambda t: torch.as_tensor(t, device=device),
+                       merged[d]) for d in sorted(merged)])
 
 
 def exchange(transfers) -> list:

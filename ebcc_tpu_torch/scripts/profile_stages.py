@@ -5,17 +5,18 @@
 
 The port of ``scripts/profile_stages.py``: one batch (default B = 8) of
 the bench stack (721x1440, MAX_ERROR 0.5, base_cr 100) goes through the
-stages of ``api.compress`` -> ``api._host_stage`` and of
-``api.decompress`` -> ``api._device_batch`` one at a time, each timed on
-the host clock after a synchronise, and the script prints a JSON dict of
-stage -> seconds under the JAX script's keys:
+stages of ``api.compress`` -> ``api._drain`` and of ``api.decompress`` ->
+``api._device_batch`` one at a time, each timed on the host clock after a
+synchronise, and the script prints a JSON dict of stage -> seconds under
+the JAX script's keys:
 
 * encode: ``0_host_scale_u16`` (native u16 quantisation and the targets),
   ``1_device_encode_search`` (``encode_error_bounded_hostq``, synchronised;
   the best of 3),
-  ``2_device_to_host_transfer_small`` (the selections' ``.cpu()`` and the
-  early pure decision), ``3_coef_fetch_plus_native_pack``, ``4_zstd``,
-  ``5_assemble`` (frames and container);
+  ``2_device_to_host_transfer_small`` (the packed metadata's copy,
+  ``api._unpack_meta`` and the early pure decision; ``2_meta_bytes``),
+  ``3_coef_fetch_plus_native_pack``, ``4_zstd``, ``5_assemble`` (frames
+  and container);
 * decode: ``6_unzstd`` (headers and both layers' zstd),
   ``7_native_base_decode``, ``8_native_resid_decode``, ``9_device_recon``
   (``recon_packed`` on resident planes, synchronised);
@@ -26,8 +27,9 @@ stage -> seconds under the JAX script's keys:
   for ``transform_counts`` (``_hostq_prelude``, ``bp.analyze``,
   ``bp.segment_counts``, ``bp.candidate_bits``), ``truncation_bisections``
   (both ``_search_truncation``), ``mask_greedy_scans`` (both
-  ``_search_mask``) and ``residual_and_packings`` (the base recon at the
-  selection and ``_resid_layer``): CUDA events between the calls of
+  ``_search_mask``) and ``residual_and_packings`` (``_eb_results``: the
+  base recon at the selection, ``_resid_layer`` and both layers' transfer
+  forms, then ``_pack_meta``): CUDA events between the calls of
   ``FrameCodec._eb_multi_core`` (the host clock on the CPU), best of 3 per
   stage, and its result must equal the encode's field by field.
 
@@ -35,13 +37,18 @@ The port's own keys: ``0a_h2d_upload`` (the u16 planes, ranges and
 targets to the device; ``*_bytes``, ``*_gbps``), ``1a_encode_enqueue``
 (the encode call's return, before the synchronise, in the run of stage
 1's best wall: when it is close to that wall, the host's launches set the
-pace), ``3a_coef_d2h`` (the int32 coefficient planes' pageable
-``.cpu()``, as the api fetches them; ``*_bytes``, ``*_gbps``, and
-``3a_coef_d2h_pinned`` / ``*_pinned_gbps``: the same bytes copied into
-pinned host memory, best of 3, as a second figure), ``3b_native_pack``
-(the native coder on the fetched planes), ``9a_h2d_upload`` and
-``9b_d2h_frames`` (the decoded planes up, the frames down), ``batch``,
-``device``, ``card`` and ``timing``.
+pace), ``3a_coef_d2h`` (``api._start_transfers`` and ``api._fetch_coef``
+of each layer the api packs: the form its flags pick, copied
+``non_blocking`` into pinned memory and waited on; ``3a_form_base`` /
+``3a_form_resid`` "sparse", "u8", "u16" or "int32", None where the layer
+is not fetched; ``3a_nsig_max_*`` and ``3a_bucket_*``, the sparse pairs
+fetched a frame; ``*_bytes`` beside ``3a_coef_int32_bytes``, the int32
+planes of the same layers; ``*_gbps``; and ``3a_coef_d2h_pinned`` /
+``*_pinned_gbps``, the same tensors' pinned copy alone, best of 3),
+``3b_native_pack`` (the native coder on the fetched forms),
+``9a_h2d_upload`` and ``9b_d2h_frames`` (the decoded planes up, the
+frames down into pinned memory), ``batch``, ``device``, ``card`` and
+``timing``.
 
 The stages call the api's own functions in the api's order, and the
 assembled container is the one ``compress`` writes for the batch.
@@ -60,7 +67,7 @@ import torch
 from .. import api
 from ..codec import container
 from ..codec.config import ResidualMode, base_error_quantile
-from ..codec.pipeline import COEF_FIELDS, EncodeResult, FrameCodec, _Eval
+from ..codec.pipeline import FrameCodec, _Eval
 from ..ops import bitplane as bp
 from ..runtime import native
 from . import common
@@ -69,6 +76,9 @@ from .bench import bench_config
 BATCH = 8
 DEVICE_STAGES = ("transform_counts", "truncation_bisections",
                  "mask_greedy_scans", "residual_and_packings")
+# the forms' names as the stage keys print them
+FORM_NAMES = {"sparse": "sparse", "pack8": "u8", "pack16": "u16",
+              "coef": "int32"}
 ENCODE_KEYS = ("0_host_scale_u16", "0a_h2d_upload", "1_device_encode_search",
                "2_device_to_host_transfer_small",
                "3_coef_fetch_plus_native_pack", "4_zstd", "5_assemble")
@@ -77,10 +87,10 @@ DECODE_KEYS = ("6_unzstd", "7_native_base_decode", "8_native_resid_decode",
 
 
 def _encode_marked(codec: FrameCodec, u, mn, mx, target, qbase: float,
-                   marks: common.Marks) -> EncodeResult:
+                   marks: common.Marks) -> tuple:
     """``encode_error_bounded_hostq`` at one quantile, call for call as
     ``FrameCodec._eb_multi_core`` makes it, with a mark after each device
-    stage."""
+    stage: (the result, its packed metadata)."""
     base, spec = codec.base, codec.base.spec
     dataq, const, dc, ci = codec._hostq_prelude(u, mn, mx)
     an_b = bp.analyze(ci, spec)
@@ -99,32 +109,17 @@ def _encode_marked(codec: FrameCodec, u, mn, mx, target, qbase: float,
         marks.mark("mask_greedy_scans")
         sels.append((bits, feas, maxd, bs, ks, mask))
     del ev_b
-    (bits_pure, feas_pure, _, bs_pure, ks_pure, mask_pure), \
-        (bits_q, _, maxd_q, bs_q, ks_q, mask_q) = sels
-    _, km_pure, mbits_pure, _, _, segs_pure = mask_pure
-    use_mq, km_q, mbits_q, maxd_qm, drop_q, segs_q = mask_q
-    coef_q = codec._recon_at(an_b, base, bs_q, ks_q)
-    if codec._mask_enabled(base):
-        coef_q = torch.where(use_mq[:, None, None],
-                             bp.recon_masked(an_b, bs_q, drop_q, spec),
-                             coef_q)
-        maxd_q = torch.where(use_mq, maxd_qm, maxd_q)
-    res = EncodeResult(
-        mn=mn, mx=mx, const=const, dc_b=dc, max_step_b=an_b.max_step,
-        base_coef=ci, base_bits_pure=bits_pure, base_feasible_pure=feas_pure,
-        bs_pure=bs_pure, ks_pure=ks_pure, km_pure=km_pure,
-        mbits_pure=mbits_pure, segs_pure=segs_pure, base_bits_q=bits_q,
-        bs_q=bs_q, ks_q=ks_q, km_q=km_q, mbits_q=mbits_q, segs_q=segs_q,
-        skip_residual=maxd_q <= 0,
-        **codec._resid_layer(dataq, target,
-                             codec._base_recon(coef_q, mn, mx, dc)))
+    res = codec._eb_results(dataq, mn, mx, const, dc, ci, target, an_b,
+                            sels[0], sels[1:])[0]
+    meta = codec._pack_meta(res)
     marks.mark("residual_and_packings")
-    return res
+    return res, meta
 
 
 def device_stage_breakdown(codec: FrameCodec, u, mn, mx, target,
                            qbase: float, reps: int = 3):
-    """({cum_<stage>, stage_<stage>: best seconds}, the encode's result)."""
+    """({cum_<stage>, stage_<stage>: best seconds}, the encode's (result,
+    packed metadata))."""
     best = dict.fromkeys(DEVICE_STAGES, float("inf"))
     res = None
     for _ in range(reps):
@@ -199,7 +194,7 @@ def profile_stages(data, device="cuda", config=None, qbase=None,
     for _ in range(reps):  # the run with the best synchronised wall
         common.sync(dev)
         t0 = time.perf_counter()
-        res = codec.encode_error_bounded_hostq(*inputs, qbase)
+        res, meta = codec.encode_error_bounded_hostq(*inputs, qbase)
         enqueued = time.perf_counter() - t0
         common.sync(dev)
         wall = time.perf_counter() - t0
@@ -207,21 +202,24 @@ def profile_stages(data, device="cuda", config=None, qbase=None,
             t["1_device_encode_search"], t["1a_encode_enqueue"] = wall, \
                 enqueued
 
-    stages, res_marked = device_stage_breakdown(codec, *inputs, qbase, reps)
+    stages, (res_marked, meta_marked) = device_stage_breakdown(
+        codec, *inputs, qbase, reps)
     t.update(stages)
-    for k, v in res._asdict().items():
-        if not torch.equal(v, getattr(res_marked, k)):
+    for k, v in [*res._asdict().items(), ("meta", meta)]:
+        if not torch.equal(v, meta_marked if k == "meta"
+                           else getattr(res_marked, k)):
             raise AssertionError(f"the stage breakdown's encode differs from "
                                  f"encode_error_bounded_hostq in {k}")
-    del res_marked
+    del res_marked, meta_marked
 
-    # _host_stage of one result, stage by stage
+    # api._drain of one result, stage by stage
+    rd = res._asdict()
     t0 = time.perf_counter()
-    resn = {k: v.cpu().numpy() for k, v in res._asdict().items()
-            if k not in COEF_FIELDS}
-    resn["decided_pure"] = api._decide_pure(resn, cfg.mode)
+    rd["_meta"] = api._D2H({0: meta})
+    resn = api._fetch_small([rd], codec, cfg)[0]
     api._check_plane_budget(resn, cfg)
     t["2_device_to_host_transfer_small"] = time.perf_counter() - t0
+    t["2_meta_bytes"] = meta.numel() * meta.element_size()
 
     trunc_b = np.maximum(
         api._arena_bits(resn, "pure", resn["base_bits_pure"]),
@@ -229,38 +227,42 @@ def profile_stages(data, device="cuda", config=None, qbase=None,
                  api._arena_bits(resn, "q", resn["base_bits_q"])))
     trunc_r = np.where(resn["skip_residual"] | resn["decided_pure"], 0,
                        api._arena_bits(resn, "r", resn["resid_bits"]))
-    # the planes _pack_layer_streams would fetch (a layer no frame keeps
-    # bits of stays on the device), fetched as it fetches them; it then
-    # finds them on the host
-    fetch = {f"{layer}_coef": getattr(res, f"{layer}_coef")
-             for layer, trunc in (("base", trunc_b), ("resid", trunc_r))
-             if int(trunc.max(initial=0)) > 0}
+    # the forms _pack_layer_streams fetches (a layer no frame keeps bits of
+    # stays on the device), fetched as _drain fetches them; it then finds
+    # them on the host
+    layers = [layer for layer, trunc in (("base", trunc_b),
+                                         ("resid", trunc_r))
+              if int(trunc.max(initial=0)) > 0]
     t0 = time.perf_counter()
-    fetched = {k: v.cpu() for k, v in fetch.items()}
+    api._start_transfers([rd], [resn])
+    fetched = {layer: api._fetch_coef(resn, rd, layer) for layer in layers}
     t["3a_coef_d2h"] = time.perf_counter() - t0
-    t["3a_coef_d2h_bytes"] = sum(v.nbytes for v in fetched.values())
+    for layer in ("base", "resid"):
+        form = api._form(resn, layer) if layer in layers else None
+        t[f"3a_form_{layer}"] = FORM_NAMES.get(form)
+        t[f"3a_nsig_max_{layer}"] = int(resn[f"{layer}_nsig"].max())
+        t[f"3a_bucket_{layer}"] = (fetched[layer][1].shape[1]
+                                   if form == "sparse" else None)
+    t["3a_coef_d2h_bytes"] = sum(
+        a.nbytes for f in fetched.values()
+        for a in f[1:3 if f[0] == "sparse" else 2])
+    t["3a_coef_int32_bytes"] = sum(rd[f"{layer}_coef"].numel() * 4
+                                   for layer in layers)
     t["3a_coef_d2h_gbps"] = _gbps(t["3a_coef_d2h_bytes"], t["3a_coef_d2h"])
-    res_host = res._replace(**fetched)
     t0 = time.perf_counter()
-    streams = (api._pack_layer_streams(codec, res_host, "base", trunc_b),
-               api._pack_layer_streams(codec, res_host, "resid", trunc_r))
+    streams = (api._pack_layer_streams(resn, codec, rd, "base", trunc_b),
+               api._pack_layer_streams(resn, codec, rd, "resid", trunc_r))
     t["3b_native_pack"] = time.perf_counter() - t0
     t["3_coef_fetch_plus_native_pack"] = t["3a_coef_d2h"] + \
         t["3b_native_pack"]
     t["3a_coef_d2h_pinned"] = t["3a_coef_d2h_pinned_gbps"] = None
-    if dev.type == "cuda" and fetch:
-        pinned = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                  for k, v in fetch.items()}
-
-        def copy_pinned():
-            for k, v in fetch.items():
-                pinned[k].copy_(v, non_blocking=True)
-
-        t["3a_coef_d2h_pinned"] = common.best_wall(copy_pinned, reps, dev)
+    copied = {k: rd[k] for k in rd["_forms"].host} if "_forms" in rd else {}
+    if dev.type == "cuda" and copied:
+        t["3a_coef_d2h_pinned"] = common.best_wall(
+            lambda: api._D2H(copied).get(next(iter(copied))), reps, dev)
         t["3a_coef_d2h_pinned_gbps"] = _gbps(t["3a_coef_d2h_bytes"],
                                              t["3a_coef_d2h_pinned"])
-        del pinned
-    del fetch, fetched
+    del fetched, copied
 
     t0 = time.perf_counter()
     zblobs = api._zstd_stage(resn, streams, n, cfg)
@@ -271,7 +273,7 @@ def profile_stages(data, device="cuda", config=None, qbase=None,
         api._assemble_frame(resn, i, h, w, cfg, streams, zblobs)
         for i in range(n)])
     t["5_assemble"] = time.perf_counter() - t0
-    del res, res_host, inputs
+    del res, rd, inputs
 
     rec = _decode_stages(blob, codec, t)
     t["max_err"] = float(np.max(np.abs(rec - frames)))
@@ -344,7 +346,7 @@ def _decode_stages(blob: bytes, codec: FrameCodec, t: dict) -> np.ndarray:
     common.sync(dev)
     t["9_device_recon"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    rec = rec_dev.cpu().numpy()
+    rec = api._D2H({"rec": rec_dev}).get("rec")
     t["9b_d2h_frames"] = time.perf_counter() - t0
     out[todo] = rec
     return out

@@ -371,6 +371,43 @@ def test_cuda_compress_matches_cpu_and_native(card):
             rec, ebcc_tpu_torch.decompress(blob, cfg, device="cpu"))
 
 
+def test_cuda_transfer_forms_match_cpu(card, monkeypatch):
+    """``_pack_small`` and ``_sparsify`` on the card equal the same
+    functions on CPU tensors (frames under and past the sparse cap, u8 /
+    u16 valid and not), and a compress with the forms equals one with
+    the fetch forced to the int32 planes, and the native encoder's."""
+    from ebcc_tpu_torch import api
+    rng = np.random.default_rng(12)
+    mag = np.exp(rng.uniform(0, 14, (B, H, W))).astype(np.int64)
+    mag *= rng.random((B, H, W)) < np.array([0.01, 0.1, 0.2, 0.6])[:, None,
+                                                                   None]
+    ci = (mag * rng.choice([-1, 1], mag.shape)).astype(np.int32)
+    step = np.array([int(m.max()).bit_length() - 1 for m in mag], np.int32)
+    low = np.array([0, 7, 12, 14], np.int32)
+    codec = FrameCodec(H, W, EBCCConfig(max_batch=B), card)
+    outs = {}
+    for dev in (card, torch.device("cpu")):
+        p16, p8, s16, s8, ok16, ok8 = codec._pack_small(
+            *(torch.from_numpy(a).to(dev) for a in (ci, step, low)))
+        outs[dev.type] = (p16, p8, s16, s8, ok16, ok8,
+                          *codec._sparsify(p16, ok16, H * W // 8))
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    # u16 exact in frames 1-3, u8 in frame 3, the sparse form in frames 1
+    # and 2 (frame 3 is past the cap)
+    assert outs["cpu"][4].tolist() == [False, True, True, True]
+    assert outs["cpu"][5].tolist() == [False, False, False, True]
+    assert outs["cpu"][9].tolist() == [False, True, True, False]
+    data = _field(5, seed=4)
+    cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.5, base_cr=100,
+                     max_batch=2)
+    blob = ebcc_tpu_torch.compress(data, cfg, device="cuda")
+    monkeypatch.setattr(api, "_fetch_coef", lambda res, rd, layer: (
+        "dense", api._host(rd, f"{layer}_coef"), None))
+    assert ebcc_tpu_torch.compress(data, cfg, device="cuda") == blob
+    assert blob == cpu_encoder.compress(data, cfg)
+
+
 def test_cuda_rate_modes_match_cpu_and_native(card):
     data = _field(5, seed=6)
     for mode in (ResidualMode.NONE, ResidualMode.SPARSIFICATION_FACTOR):
@@ -556,7 +593,12 @@ def test_cuda_profile_stages_container_is_compress(card):
     assert blob == ebcc_tpu_torch.compress(data, cfg, device="cuda")
     assert blob == cpu_encoder.compress(data, cfg)
     assert t["max_err"] <= 0.5 and t["device"] == "cuda"
-    assert t["3a_coef_d2h_bytes"] == 2 * 768 * 1472 * 4
+    # the base crosses as its u16 form, half its int32 planes' bytes: the
+    # sparse pairs' 16-bit deltas cannot span the gaps of over 65535
+    # positions between its few coded coefficients
+    assert t["3a_coef_int32_bytes"] == 2 * 768 * 1472 * 4
+    assert (t["3a_form_base"], t["3a_form_resid"]) == ("u16", None)
+    assert t["3a_coef_d2h_bytes"] == 2 * 768 * 1472 * 2
     assert t["3a_coef_d2h_pinned_gbps"] > 0
     assert t["1_device_encode_search"] >= t["1a_encode_enqueue"] > 0
 

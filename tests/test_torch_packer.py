@@ -223,13 +223,13 @@ def test_scale_to_u16_equals_native_host_scaling():
 def test_f32_entry_coefficients_equal_hostq(encoded):
     data, codec, res = encoded
     u, mn, mx, maxq = _scale_u16_host(data)
-    res_hq = codec.encode_error_bounded_hostq(
+    res_hq, _ = codec.encode_error_bounded_hostq(
         _upload_u16(u, "cpu"), torch.from_numpy(mn), torch.from_numpy(mx),
         torch.from_numpy(np.float32(0.25) - maxq), 1e-6)
     for f in ("base_coef", "mn", "mx", "dc_b", "max_step_b", "const"):
         assert torch.equal(getattr(res, f), getattr(res_hq, f)), f
     rate = codec.encode_rate_targeted(torch.from_numpy(data), 2000, 0)
-    rate_hq = codec.encode_rate_targeted_hostq(
+    rate_hq, _ = codec.encode_rate_targeted_hostq(
         _upload_u16(u, "cpu"), torch.from_numpy(mn), torch.from_numpy(mx),
         2000, 0)
     for f in ("base_coef", "base_bits_q", "bs_q", "ks_q"):

@@ -84,7 +84,7 @@ def _selections(codec, data, budgets, jax_codec=False):
         res, _ = codec.encode_rate_targeted_hostq(
             u, mn, mx, *(np.full(len(data), b, np.int32) for b in budgets))
     else:
-        res = codec.encode_rate_targeted_hostq(
+        res, _ = codec.encode_rate_targeted_hostq(
             api._upload_u16(u, "cpu"), torch.from_numpy(mn),
             torch.from_numpy(mx), *budgets)
     return {f: np.asarray(getattr(res, f)).astype(np.int64)

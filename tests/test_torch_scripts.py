@@ -108,7 +108,10 @@ KEYS = {
         # the JAX script recorded a failed breakdown; the port raises
         {"device_stage_breakdown_error"},
         {"0a_h2d_upload", "0a_h2d_upload_bytes", "0a_h2d_upload_gbps",
-         "1a_encode_enqueue", "3a_coef_d2h", "3a_coef_d2h_bytes",
+         "1a_encode_enqueue", "2_meta_bytes", "3a_coef_d2h",
+         "3a_coef_d2h_bytes", "3a_coef_int32_bytes", "3a_form_base",
+         "3a_form_resid", "3a_nsig_max_base", "3a_nsig_max_resid",
+         "3a_bucket_base", "3a_bucket_resid",
          "3a_coef_d2h_gbps", "3a_coef_d2h_pinned",
          "3a_coef_d2h_pinned_gbps", "3b_native_pack", "9a_h2d_upload",
          "9b_d2h_frames", "batch", "device", "card", "timing"}),
@@ -188,8 +191,11 @@ def test_profile_stages_container_is_compress(data):
     assert t["max_err"] <= 0.5
     assert t["3_coef_fetch_plus_native_pack"] == pytest.approx(
         t["3a_coef_d2h"] + t["3b_native_pack"])
-    # the base planes of both frames cross (pure-base frames: no residual)
-    assert t["3a_coef_d2h_bytes"] == FPB * 64 * 64 * 4
+    # only the base layer crosses (pure-base frames: no residual), as its
+    # u16 form: half the bytes of its int32 planes
+    assert t["3a_coef_int32_bytes"] == FPB * 64 * 64 * 4
+    assert (t["3a_form_base"], t["3a_form_resid"]) == ("u16", None)
+    assert t["3a_coef_d2h_bytes"] == FPB * 64 * 64 * 2
     stages = [t[f"stage_{n}"] for n in profile_stages.DEVICE_STAGES]
     assert all(s > 0 for s in stages)
     assert t["cum_residual_and_packings"] == pytest.approx(sum(stages))
@@ -212,7 +218,10 @@ def test_profile_stages_with_a_residual_layer(monkeypatch):
     assert blob == cpu_encoder.compress(frames, cfg, qbase=1e-3)
     assert all(container.unpack_frame(f)[0].flags & container.FLAG_RESID
                for f in container.unpack_blob(blob))
-    assert t["3a_coef_d2h_bytes"] > 2 * 64 * 64 * 4
+    # both layers cross, each in a form smaller than its int32 planes
+    assert t["3a_coef_int32_bytes"] > 2 * 64 * 64 * 4
+    assert None not in (t["3a_form_base"], t["3a_form_resid"])
+    assert 0 < t["3a_coef_d2h_bytes"] < t["3a_coef_int32_bytes"]
     assert t["8_native_resid_decode"] > 0
 
 
