@@ -16,6 +16,17 @@ bench.py):
   (a synthetic 0.5-degree ensemble spread upsampled to 721x1440 by
   ``dataprep.upsample_3t_2s``), then ``DirectCompressor`` over the same
   frames as two slices of 16;
+* every captured ``FrameCodec`` stage (the hostq encode at MAX_ERROR,
+  at a second base quantile, POINTWISE and multi-q; the rate encode,
+  NONE and SPARSIFICATION_FACTOR; ``recon_packed`` and ``recon``; the f32
+  entry points) at [16, 721, 1440]: its first call (eager), second (the
+  capture and a replay) and third (a replay) bit-equal to the eager stage
+  on every result tensor, with the capture's seconds and memory (a
+  second quantile and the second budgets replay the graph of the first);
+  stage 1's enqueue and wall eager against replayed; the cost of cloning
+  a replay's outputs; 64 frames (4 batches) at ``prefetch_batches`` 2
+  and 0, the same containers and decodes; and 16 against 17 frames (a
+  partial last batch), the main path's frames;
 * NONE and SPARSIFICATION_FACTOR (base_cr 100, residual_cr 10), the union
   chunk-mask rule (MAX_ERROR 0.5, pure-base fallback off, base quantile
   1e-3) and ``compress_multi_q`` at quantiles (0, 1e-6, 1e-3), each held
@@ -873,6 +884,268 @@ def drivers_phase(dev, drive, tag, h=H, w=W, steps=150):
     return runs, total, k1
 
 
+def tensors_of(x):
+    """The tensors of a stage's result, in order (tuples, lists and named
+    tuples walked depth first)."""
+    if torch.is_tensor(x):
+        return [x]
+    return [t for v in x for t in tensors_of(v)]
+
+
+def graphs_phase(codec, codec_pw, inputs, tgt_pw, data, cfg, blob, tag):
+    """Every captured stage of ``FrameCodec`` at full width, B = 16: the
+    key's first call (eager), second (the capture and a replay) and third
+    (a replay) held bit-equal to the eager stage on every result tensor; a
+    second base quantile replays the first's graph (the quantile is a
+    tensor input) and equals its own eager run; capture seconds and memory
+    per key; stage 1's enqueue and wall, eager against replay; the cost of
+    cloning a replay's outputs; four batches in flight two at a time
+    against one at a time; and a partial last batch (17 frames) against a
+    full one.  Returns a dict for the summary line."""
+    import ebcc_tpu_torch
+    from ebcc_tpu_torch.api import _device_batch
+    from ebcc_tpu_torch.codec import container
+    from ebcc_tpu_torch.codec.config import EBCCConfig, ResidualMode
+    from ebcc_tpu_torch.codec.pipeline import FrameCodec
+
+    u_dev, mn_d, mx_d, tgt = inputs
+    dev = codec.device
+    out = {"keys": {}}
+
+    def mb(nbytes):
+        return f"{nbytes / 2**20:.1f} MiB"
+
+    def check(label, owner, public, eager, captured=None):
+        """Three calls of ``public`` against ``eager``.  ``captured``: the
+        graph an earlier check captured for this key (another quantile or
+        budget), which all three calls replay; else the first call runs
+        eagerly and the second captures."""
+        torch.cuda.synchronize()
+        before = set(owner.graph_entries())
+        replays0 = captured.replays if captured is not None else 0
+        got, secs = [], []
+        for call in range(3):
+            t0 = time.perf_counter()
+            got.append(public())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if call == 0 and captured is None and \
+                    set(owner.graph_entries()) != before:
+                raise AssertionError(f"{label}: the first call captured")
+        new = {k: e for k, e in owner.graph_entries().items()
+               if k not in before}
+        if captured is None:
+            if len(new) != 1:
+                raise AssertionError(f"{label}: {len(new)} graphs captured")
+            [(key, entry)] = new.items()
+            replays = 2
+        else:
+            if new:
+                raise AssertionError(f"{label}: {len(new)} graphs captured "
+                                     "where one replays")
+            key = next(k for k, e in owner.graph_entries().items()
+                       if e is captured)
+            entry, replays = captured, 3
+        if entry.replays - replays0 != replays:
+            raise AssertionError(f"{label}: {entry.replays - replays0} "
+                                 f"replays, not {replays}")
+        want = tensors_of(eager())
+        for name, res in zip(("first call", "second call", "third call"),
+                             got):
+            have = tensors_of(res)
+            if len(have) != len(want) or not all(
+                    a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(have, want)):
+                raise AssertionError(f"{label}: the {name} differs from "
+                                     "the eager stage")
+        launches = {k.name: n for k, n in entry.launches.items()}
+        how = ("all three replays of the graph captured before"
+               if captured is not None else
+               f"first call eager, second the capture ({entry.capture_s:.3f}"
+               " s: capture and instantiation) and a replay, third a replay")
+        print(f"{label}: calls {secs[0]:.3f} / {secs[1]:.3f} / "
+              f"{secs[2]:.3f} s ({how}); reserved "
+              f"{mb(entry.reserved_bytes)}, held {mb(entry.held_bytes)}; "
+              f"{len(want)} result tensors bit-equal to the eager stage in "
+              f"all three; launches a replay {launches} {tag}")
+        out["keys"][label] = {
+            "stage": key[0], "call_s": secs,
+            "replayed_earlier_capture": captured is not None,
+            "capture_s": entry.capture_s,
+            "reserved_bytes": entry.reserved_bytes,
+            "held_bytes": entry.held_bytes,
+            "tensors": len(want), "launches_per_replay": launches}
+        return got[-1], entry
+
+    def single(r):
+        return r[0][0], r[1][0]
+
+    qs = (0.0, 1e-6, 1e-3)
+    res6, entry6 = check(
+        "eb hostq, MAX_ERROR, q 1e-6", codec,
+        lambda: codec.encode_error_bounded_hostq(u_dev, mn_d, mx_d, tgt,
+                                                 1e-6),
+        lambda: single(codec._eb_multi_hostq(u_dev, mn_d, mx_d, tgt,
+                                             (1e-6,))))
+    res3, _ = check(
+        "eb hostq, MAX_ERROR, q 1e-3", codec,
+        lambda: codec.encode_error_bounded_hostq(u_dev, mn_d, mx_d, tgt,
+                                                 1e-3),
+        lambda: single(codec._eb_multi_hostq(u_dev, mn_d, mx_d, tgt,
+                                             (1e-3,))), captured=entry6)
+    nsel = int(((res6[0].bs_q != res3[0].bs_q) |
+                (res6[0].ks_q != res3[0].ks_q) |
+                (res6[0].km_q != res3[0].km_q)).sum())
+    print(f"q 1e-3 against q 1e-6: {nsel}/{BATCH} frames select another "
+          f"base truncation or mask, from one graph (the quantile is a "
+          f"tensor input), each equal to its own quantile's eager run")
+    out["frames_moved_by_qbase"] = nsel
+    check("eb hostq, POINTWISE, q 1e-6", codec_pw,
+          lambda: codec_pw.encode_error_bounded_hostq(u_dev, mn_d, mx_d,
+                                                      tgt_pw, 1e-6),
+          lambda: single(codec_pw._eb_multi_hostq(u_dev, mn_d, mx_d, tgt_pw,
+                                                  (1e-6,))))
+    check(f"eb multi hostq, MAX_ERROR, qs {qs}", codec,
+          lambda: codec.encode_error_bounded_multi_hostq(u_dev, mn_d, mx_d,
+                                                         tgt, qs),
+          lambda: codec._eb_multi_hostq(u_dev, mn_d, mx_d, tgt, qs))
+    cfg_rate = EBCCConfig(mode=ResidualMode.SPARSIFICATION_FACTOR,
+                          base_cr=100, residual_cr=10, max_batch=BATCH)
+    codec_rate = FrameCodec(H, W, cfg_rate, dev)
+    bb, rb = int(32 * H * W / 100), int(8 * H * W / 10)
+
+    def budgets(r_):
+        return codec_rate._stage_input((bb, r_), torch.int64)
+
+    rate_entry = None
+    for label, r_ in (("NONE", 0), ("SPARSIFICATION_FACTOR", rb)):
+        _, rate_entry = check(
+            f"rate hostq, {label}", codec_rate,
+            lambda: codec_rate.encode_rate_targeted_hostq(
+                u_dev, mn_d, mx_d, bb, r_),
+            lambda: codec_rate._rate_hostq(u_dev, mn_d, mx_d, budgets(r_)),
+            captured=rate_entry)
+    metas = [container.unpack_frame(f)
+             for f in container.unpack_blob(blob)][:BATCH]
+    recon, args = _device_batch(codec, metas, list(range(BATCH)))
+    if recon.__name__ != "recon_packed":
+        raise AssertionError("the main path's blob decodes through the "
+                             "f32 coefficients")
+    check("recon_packed", codec, lambda: codec.recon_packed(*args),
+          lambda: codec._recon_packed(*args))
+    rargs = (codec._unpack16_coef(args[0], args[1]), *args[2:6],
+             codec._unpack16_coef(args[6], args[7]), *args[8:])
+    check("recon", codec, lambda: codec.recon(*rargs),
+          lambda: codec._recon(*rargs))
+    x = torch.from_numpy(data[:BATCH]).to(dev)
+    t32 = torch.full((BATCH,), ERROR, dtype=torch.float32, device=dev)
+    check("f32 eb, MAX_ERROR, q 1e-6", codec,
+          lambda: codec.encode_error_bounded(x, t32, 1e-6),
+          lambda: codec._eb_multi(x, t32, (1e-6,))[0])
+    check(f"f32 eb multi, MAX_ERROR, qs {qs}", codec,
+          lambda: codec.encode_error_bounded_multi(x, t32, qs),
+          lambda: codec._eb_multi(x, t32, qs))
+    check("f32 rate, SPARSIFICATION_FACTOR", codec_rate,
+          lambda: codec_rate.encode_rate_targeted(x, bb, rb),
+          lambda: codec_rate._rate(x, budgets(rb)))
+
+    # stage 1 of the main path, eager against replayed, in turns
+    def enqueue_wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        enq = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return enq, time.perf_counter() - t0
+
+    calls = {"eager": lambda: codec._eb_multi_hostq(u_dev, mn_d, mx_d, tgt,
+                                                    (1e-6,)),
+             "replay": lambda: codec.encode_error_bounded_hostq(
+                 u_dev, mn_d, mx_d, tgt, 1e-6)}
+    runs = {k: [] for k in calls}
+    for order in (("eager", "replay"), ("replay", "eager")) * 3:
+        for k in order:
+            runs[k].append(enqueue_wall(calls[k]))
+    for k, rs in runs.items():
+        enq = sorted(r[0] * 1e3 for r in rs)
+        wall = sorted(r[1] * 1e3 for r in rs)
+        dev_ms = min(cuda_ms(calls[k], reps=1) for _ in range(3))
+        print(f"stage 1 {k}: enqueue {enq[0]:.3f} ms (median "
+              f"{enq[len(enq) // 2]:.3f}), synchronised wall {wall[0]:.3f} "
+              f"ms (median {wall[len(wall) // 2]:.3f}), CUDA events "
+              f"{dev_ms:.3f} ms, {len(rs)} runs {tag}")
+        out[f"stage1_{k}"] = {"enqueue_ms": enq, "wall_ms": wall,
+                              "event_ms": dev_ms}
+    outs_bytes = sum(t.numel() * t.element_size() for t in entry6.outputs)
+    clone_ms = cuda_ms(lambda: [t.clone() for t in entry6.outputs], reps=10)
+    ring = cfg.prefetch_batches
+    print(f"cloning a replay's outputs ({len(entry6.outputs)} tensors, "
+          f"{mb(outs_bytes)}): {clone_ms:.3f} ms a batch; a ring of "
+          f"{ring + 1} graphs a key instead would copy nothing and take "
+          f"{ring} more captures ({entry6.capture_s:.3f} s each) holding "
+          f"{ring} more sets of static inputs and outputs ("
+          f"{mb(entry6.held_bytes)} each), where the clones of the "
+          f"{ring} batches in flight hold {ring} x {mb(outs_bytes)} {tag}")
+    out["clone"] = {"bytes": outs_bytes, "ms": clone_ms,
+                    "tensors": len(entry6.outputs)}
+
+    # four batches of 16 in flight two at a time against one at a time
+    data4 = np.concatenate([data, data[::-1]])
+    blobs, walls = {}, {}
+    for pf in (2, 0, 2, 0):
+        cfg_pf = dataclasses.replace(cfg, prefetch_batches=pf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blobs[pf] = ebcc_tpu_torch.compress(data4, cfg_pf, device="cuda")
+        walls.setdefault(pf, []).append(time.perf_counter() - t0)
+    rec2 = ebcc_tpu_torch.decompress(
+        blobs[2], dataclasses.replace(cfg, prefetch_batches=2),
+        device="cuda")
+    rec0 = ebcc_tpu_torch.decompress(
+        blobs[0], dataclasses.replace(cfg, prefetch_batches=0),
+        device="cuda")
+    if blobs[2] != blobs[0] or not np.array_equal(rec2.view(np.uint32),
+                                                  rec0.view(np.uint32)):
+        raise AssertionError("prefetch_batches 2 and 0 give other "
+                             "containers or decodes")
+    main_frames = container.unpack_blob(blob)
+    if container.unpack_blob(blobs[2]) != main_frames + main_frames[::-1]:
+        raise AssertionError("the four batches differ from the main path's "
+                             "frames")
+    print(f"{len(data4)} frames, 4 batches of {BATCH}: prefetch_batches 2 "
+          f"and 0 give the same containers (the main path's frames) and "
+          f"decodes; compress walls {walls} s {tag}")
+    out["prefetch_walls_s"] = walls
+
+    # a partial last batch: 17 frames are a full batch and one frame that
+    # the device pads to 16 (the host stages see the one real frame)
+    rec_main = ebcc_tpu_torch.decompress(blob, cfg, device="cuda")
+    part = {}
+    for n_ in (BATCH, BATCH + 1) * 3:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b_ = ebcc_tpu_torch.compress(data[:n_], cfg, device="cuda")
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r_ = ebcc_tpu_torch.decompress(b_, cfg, device="cuda")
+        t_dec = time.perf_counter() - t0
+        part.setdefault(n_, []).append((t_enc, t_dec))
+        if container.unpack_blob(b_) != main_frames[:n_] or \
+                not np.array_equal(r_.view(np.uint32),
+                                   rec_main[:n_].view(np.uint32)):
+            raise AssertionError(f"{n_} frames: other containers or "
+                                 "decodes than the main path's frames")
+    for n_, rows in part.items():
+        enc = sorted(r[0] for r in rows)
+        dec = sorted(r[1] for r in rows)
+        print(f"{n_} frames ({-(-n_ // BATCH)} batches of {BATCH}): "
+              f"compress {enc[0]:.4f} s (median {enc[1]:.4f}), decompress "
+              f"{dec[0]:.4f} s (median {dec[1]:.4f}), the main path's "
+              f"frames and decodes {tag}")
+    out["partial_batch_walls_s"] = {str(k): v for k, v in part.items()}
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     print("torch", torch.__version__, "cuda", torch.version.cuda)
@@ -1400,6 +1673,13 @@ def main() -> int:
             raise AssertionError("DirectCompressor reconstructions of the "
                                  "two decode backends differ")
     print("the two backends' reconstructions are bit-identical")
+
+    phase(f"graph replay vs eager: every captured FrameCodec stage at "
+          f"[{BATCH}, {H}, {W}], then {2 * N_FRAMES} frames at "
+          "prefetch_batches 2 and 0")
+    graph_summary = graphs_phase(codec, codec_pw, (u_dev, mn_d, mx_d, tgt),
+                                 tgt_pw, data, cfg, blob, tag)
+    print(json.dumps({"graphs": graph_summary, "card": card}))
 
     def drive(label, fn, expect=kernels):
         """One run of a path: every count set to 0 just before ``fn()``
@@ -2168,6 +2448,14 @@ def main() -> int:
     print(f"drivers: all 12 held, {t_drivers:.1f} s {tag}")
 
     phase(f"timings {tag}")
+    # two batches of each path first: the caches keep 16 codecs and 16
+    # graphs, and the phases since the main path's have let its keys go (a
+    # key's first call runs eagerly, its second captures)
+    for cfg_, kw in ((cfg, {}), (cfg_pw, {"error_bound": eb[:BATCH]})):
+        for _ in range(2):
+            ebcc_tpu_torch.decompress(ebcc_tpu_torch.compress(
+                data[:BATCH], cfg_, device="cuda", **kw), cfg_,
+                device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     blob2 = ebcc_tpu_torch.compress(data, cfg, device="cuda")

@@ -17,6 +17,14 @@ frames.  Decode runs the native structural decoder on the host and the
 reconstruction on the device, or the whole native CPU decoder when
 ``config.decode_backend == "cpu"``.
 
+As in the JAX package, codecs are cached per (frame geometry, config,
+device) (:func:`_codec_for`) and every batch of a call has the call's
+static size, ``min(config.max_batch, n)``: a shorter last batch is padded
+on the device by repeating its last frame's inputs (the host stages before
+the upload see the real frames only), and the padded frames' results are
+dropped before the host uses them.  So one CUDA graph per stage and key
+(:mod:`.runtime.graphs`) serves every batch of a call and of later calls.
+
 The device-to-host traffic is the JAX package's: the small fields cross
 in one packed int32 tensor, and each layer's coefficients in the smallest
 exact form its flags allow (sparse (delta, value) pairs trimmed to the
@@ -33,6 +41,7 @@ the kernels' plain torch versions.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -68,6 +77,26 @@ def _device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+@functools.lru_cache(maxsize=16)
+def _codec_for_cached(h: int, w: int, config: EBCCConfig,
+                      device: torch.device) -> FrameCodec:
+    return FrameCodec(h, w, config, device)
+
+
+def _codec_for(h: int, w: int, config: EBCCConfig,
+               device: torch.device) -> FrameCodec:
+    """The codec of (h, w, config) on ``device``, cached as the JAX
+    package's (16 codecs), so the CUDA graphs its stages captured serve
+    later calls.  The backend flags only route around the codec, so they
+    are normalised out of the key (a routing change must not capture the
+    stages again), and "cuda" keys as the current card's index."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _codec_for_cached(
+        h, w, dataclasses.replace(config, decode_backend="auto",
+                                  encode_backend="auto"), device)
 
 
 def pointwise_targets(frames: np.ndarray, eb: np.ndarray,
@@ -220,10 +249,22 @@ def _pointwise_bound(frames, config, error_bound):
     return pointwise_targets(frames, eb, config.pointwise_max_error_ratio)
 
 
-def _batch_inputs(frames, lo, hi, config, eb, dev):
+def _pad_rows(t: torch.Tensor, bsz) -> torch.Tensor:
+    """``t`` [n, ...] padded to ``bsz`` rows (None: n) by repeating its last
+    row, on its device: the host stages and the upload see the real rows
+    only."""
+    if bsz is None or len(t) == bsz:
+        return t
+    return torch.cat([t, t[-1:].expand(bsz - len(t), *t.shape[1:])])
+
+
+def _batch_inputs(frames, lo, hi, config, eb, dev, bsz=None):
     """One batch's device inputs: (u16 planes, mn, mx, error targets
     tightened by the u16 quantisation error), the targets None in the
-    rate-targeted modes."""
+    rate-targeted modes.  ``bsz``: the static batch size; rows past
+    ``hi - lo`` repeat the last frame's (each row is that frame's own
+    scaling, so the padded frames are frame ``hi - 1`` and its per-point
+    bounds)."""
     u, mnb, mxb, maxq = _scale_u16_host(frames[lo:hi])
     if eb is not None:
         target = eb[lo:hi] - maxq[:, None, None]
@@ -233,9 +274,10 @@ def _batch_inputs(frames, lo, hi, config, eb, dev):
         target = np.full(hi - lo, config.error, np.float32) - maxq
     else:
         target = None
-    return (_upload_u16(u, dev), torch.from_numpy(mnb).to(dev),
-            torch.from_numpy(mxb).to(dev),
-            None if target is None else torch.from_numpy(target).to(dev))
+    return tuple(None if a is None else _pad_rows(a, bsz) for a in (
+        _upload_u16(u, dev), torch.from_numpy(mnb).to(dev),
+        torch.from_numpy(mxb).to(dev),
+        None if target is None else torch.from_numpy(target).to(dev)))
 
 
 def compress(data, config: EBCCConfig | None = None, *, error_bound=None,
@@ -270,15 +312,16 @@ def compress(data, config: EBCCConfig | None = None, *, error_bound=None,
     eb = _pointwise_bound(frames, config, error_bound)
     n, h, w = frames.shape
     if codec is None:
-        codec = FrameCodec(h, w, config, _device(device))
+        codec = _codec_for(h, w, config, _device(device))
     dev = codec.device
     base_budget = int(32 * h * w / config.base_cr)
     resid_budget = (int(8 * h * w / config.residual_cr)
                     if config.mode == ResidualMode.SPARSIFICATION_FACTOR
                     else 0)
 
-    def dispatch(lo, hi):
-        u, mn, mx, target = _batch_inputs(frames, lo, hi, config, eb, dev)
+    def dispatch(lo, hi, bsz):
+        u, mn, mx, target = _batch_inputs(frames, lo, hi, config, eb, dev,
+                                          bsz)
         if config.mode in _ERROR_MODES:
             res, meta = codec.encode_error_bounded_hostq(u, mn, mx, target,
                                                          qbase)
@@ -311,11 +354,11 @@ def compress_multi_q(data, qs, config: EBCCConfig | None = None, *,
     dev = _device(device)
     eb = _pointwise_bound(frames, config, error_bound)
     n, h, w = frames.shape
-    codec = FrameCodec(h, w, config, dev)
+    codec = _codec_for(h, w, config, dev)
 
-    def dispatch(lo, hi):
+    def dispatch(lo, hi, bsz):
         return codec.encode_error_bounded_multi_hostq(
-            *_batch_inputs(frames, lo, hi, config, eb, dev), qs)
+            *_batch_inputs(frames, lo, hi, config, eb, dev, bsz), qs)
 
     return [container.pack_blob(f) for f in
             _encode_pipelined(n, dispatch, codec, config, h, w)]
@@ -339,14 +382,16 @@ def _encode_pipelined(n, dispatch, codec, config, h, w):
     """The batches of ``n`` frames through the device and the host, with
     ``config.prefetch_batches`` device batches in flight.
 
-    ``dispatch(lo, hi)`` enqueues frames [lo, hi) on the device: (one
-    :class:`EncodeResult` per candidate quantile, the packed metadata of
-    each).  The metadata's copy starts at once; when the oldest pending
-    batch is drained, every later one whose metadata has arrived is primed
-    first (its coefficient forms' copies start, so they overlap the
-    drain's host packing).  Returns one list of container frames per
-    candidate, in frame order."""
+    ``dispatch(lo, hi, bsz)`` enqueues frames [lo, hi) padded to the
+    static batch size ``bsz`` on the device: (one :class:`EncodeResult`
+    per candidate quantile, the packed metadata of each); the padded
+    frames' rows are dropped here.  The metadata's copy starts at once;
+    when the oldest pending batch is drained, every later one whose
+    metadata has arrived is primed first (its coefficient forms' copies
+    start, so they overlap the drain's host packing).  Returns one list of
+    container frames per candidate, in frame order."""
     out, pending = None, []
+    bsz = min(config.max_batch, n)
 
     def drain_oldest():
         nonlocal out
@@ -356,11 +401,12 @@ def _encode_pipelined(n, dispatch, codec, config, h, w):
         frames = _drain(entry, codec, config, h, w)
         out = frames if out is None else [a + b for a, b in zip(out, frames)]
 
-    for lo, hi in _batches(n, min(config.max_batch, n)):
-        res_list, metas = dispatch(lo, hi)
-        rds = [r._asdict() for r in res_list]
-        rds[0]["_meta"] = _D2H(dict(enumerate(metas)))
-        pending.append((hi - lo, rds))
+    for lo, hi in _batches(n, bsz):
+        res_list, metas = dispatch(lo, hi, bsz)
+        nb = hi - lo
+        rds = [{k: v[:nb] for k, v in r._asdict().items()} for r in res_list]
+        rds[0]["_meta"] = _D2H({k: m[:nb] for k, m in enumerate(metas)})
+        pending.append((nb, rds))
         if len(pending) > config.prefetch_batches:
             drain_oldest()
     while pending:
@@ -800,10 +846,11 @@ def decompress(blob: bytes, config: EBCCConfig | None = None, *,
         config, base_levels=g0.base_levels, residual_levels=g0.resid_levels,
         nchunks=g0.nchunks, base_nplanes=g0.base_nplanes,
         residual_nplanes=g0.resid_nplanes)
-    codec = FrameCodec(g0.h, g0.w, config, dev)
+    codec = _codec_for(g0.h, g0.w, config, dev)
     # config.prefetch_batches reconstructed batches in flight: the native
     # decode of the next batch overlaps the recon and copy of the last
     pending = []
+    bsz = min(config.max_batch, len(todo))
 
     def drain(entry):
         # the frames are copied out, so each pinned block goes back to the
@@ -813,10 +860,10 @@ def decompress(blob: bytes, config: EBCCConfig | None = None, *,
         for k, idx in enumerate(idxs):
             out[idx] = rec[k].copy()
 
-    for lo, hi in _batches(len(todo), min(config.max_batch, len(todo))):
+    for lo, hi in _batches(len(todo), bsz):
         idxs = todo[lo:hi]
-        recon, args = _device_batch(codec, metas, idxs)
-        pending.append((idxs, _D2H({"rec": recon(*args)})))
+        recon, args = _device_batch(codec, metas, idxs, bsz)
+        pending.append((idxs, _D2H({"rec": recon(*args)[:len(idxs)]})))
         if len(pending) > config.prefetch_batches:
             drain(pending.pop(0))
     while pending:
@@ -824,15 +871,20 @@ def decompress(blob: bytes, config: EBCCConfig | None = None, *,
     return np.stack(out)
 
 
-def _device_batch(codec, metas, idxs):
+def _device_batch(codec, metas, idxs, bsz=None):
     """Native structural decode of the frames ``idxs`` of ``metas`` and the
     upload of its state: ``(recon, args)`` such that ``recon(*args)`` is
-    the batch's reconstruction on ``codec.device``."""
+    the batch's reconstruction on ``codec.device``, padded to ``bsz`` rows
+    on the device by repeating the last frame's."""
     dev = codec.device
     bspec, rspec = codec.base.spec, codec.resid.spec
 
     def t(a, dtype=None):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+        return _pad_rows(torch.from_numpy(np.ascontiguousarray(a, dtype))
+                         .to(dev), bsz)
+
+    def t16(v16):
+        return _pad_rows(_upload_u16(v16, dev), bsz)
 
     bs, rs, f, i, hasr = _layer_inputs(metas, idxs)
     geo_b = (bspec.height, bspec.width, bspec.group_levels, bspec.nplanes,
@@ -847,8 +899,7 @@ def _device_batch(codec, metas, idxs):
     resid = (t(f["rmin"]), t(f["rmax"]), t(f["dc_r"]))
     if ok_b.all() and ok_r.all():
         return codec.recon_packed, (
-            _upload_u16(v16_b, dev), t(bend_b), *common,
-            _upload_u16(v16_r, dev), t(bend_r), *resid)
+            t16(v16_b), t(bend_b), *common, t16(v16_r), t(bend_r), *resid)
     # more than 14 decoded planes somewhere: f32 coefficients
     coef_b = _native.coder_decode_batch(
         bs, i["bb"], i["msb"], *geo_b, i["mask_b"], i["keep_b"])

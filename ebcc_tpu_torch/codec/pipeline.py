@@ -23,6 +23,17 @@ packed into one int32 tensor) or f32 frames scaled on the device;
 :meth:`FrameCodec.decode` reads packed streams with the torch bit packer.
 ``_dwt`` / ``_idwt`` are the transform's override points (the spatially
 sharded codec's halo DWT).
+
+On a CUDA device each public stage (the six encode entry points,
+:meth:`FrameCodec.recon` and :meth:`FrameCodec.recon_packed`) runs as a
+CUDA graph per static key, captured at the key's second call (the first
+runs eagerly) and replayed afterwards (:mod:`..runtime.graphs`), the
+counterpart of the JAX package's ``jax.jit`` per stage; the base
+quantiles and bit budgets enter as tensors, as JAX traces them.  On the
+CPU the same bodies run eagerly.  The eager
+bodies stay callable under private names (``_eb_multi_hostq``,
+``_rate_hostq``, ``_eb_multi``, ``_rate``, ``_recon``,
+``_recon_packed``) for the measuring entry points that time them.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from ..ops import bitplane as bp
 from ..ops import dwt, frame, weights
 from ..ops import fused_eval as fe
 from ..ops.frame import RESID_SCALE, U16_MAX
+from ..runtime import graphs
 from .config import EBCCConfig
 
 
@@ -198,18 +210,28 @@ class _Eval:
         return self._stats("masked", b, dropmask=dm)
 
 
-def _ok(maxd, viol, qallow: float):
-    """Feasibility rule: violation quantile, or the bound everywhere."""
+def _ok(maxd, viol, qallow):
+    """Feasibility rule: violation quantile, or the bound everywhere.
+    ``qallow``: a float, or a 0-d f32 tensor (a stage input, read at each
+    replay); the f32 comparison is the same either way."""
+    if torch.is_tensor(qallow):
+        return torch.where(qallow > 0, viol <= qallow, maxd <= 0)
     return viol <= qallow if qallow > 0 else maxd <= 0
 
 
 class FrameCodec:
-    """Codec specialised to one frame geometry (H, W), config and device."""
+    """Codec specialised to one frame geometry (H, W), config and device.
+
+    ``graphed``: whether the public stages run as CUDA graphs on a CUDA
+    device (see the module docstring)."""
+
+    graphed = True
 
     def __init__(self, h: int, w: int, config: EBCCConfig,
                  device: torch.device):
         self.h, self.w, self.config = h, w, config
         self.device = torch.device(device)
+        self._graph_owner = graphs.new_owner(self)
         c = config
         self.base = _make_geom(h, w, c.base_levels, c.base_nplanes,
                                c.nchunks)
@@ -222,6 +244,34 @@ class FrameCodec:
             self.base.hp, self.base.wp, c.base_levels)).to(self.device)
         self.wr = torch.from_numpy(weights.weight_array(
             self.resid.hp, self.resid.wp, c.residual_levels)).to(self.device)
+
+    def _stage(self, stage: str, fn, *args):
+        """``fn(*args)``: on a CUDA device eager at its key's first call,
+        then a replay of its CUDA graph (captured at the second call);
+        eager on the CPU.  ``FrameCodec.decode``
+        is not a stage: the torch packer builds its tensors from host
+        values (``ops/bitplane.py`` ``decode_batch``), a pageable copy that
+        a capture refuses; its ``recon`` is one."""
+        if self.device.type != "cuda" or not self.graphed:
+            return fn(*args)
+        return graphs.CACHE.run(self._graph_owner, stage, fn, args,
+                                self.device)
+
+    def _stage_input(self, values, dtype) -> torch.Tensor:
+        """Python scalars as one stage input [len(values)] on the device
+        (pinned and copied without a wait on a card).  A capture would
+        bake a Python scalar into the graph; a tensor is copied in at each
+        call, so one graph serves every base quantile and budget, as JAX
+        traces them."""
+        t = torch.tensor(values, dtype=dtype)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def graph_entries(self) -> dict:
+        """{stage key: :class:`..runtime.graphs.StageGraph`} of this
+        codec's live graphs (capture seconds, memory, replays)."""
+        return graphs.CACHE.entries(self._graph_owner)
 
     # ---------------- transforms ----------------
     # _dwt/_idwt are override points: the spatially sharded codec
@@ -456,7 +506,9 @@ class FrameCodec:
         n, dev = flat.shape[1], flat.device
         nzm = flat != 0
         rank = torch.cumsum(nzm, 1, dtype=torch.int32)
-        nsig = rank[:, -1]
+        # a copy: a view would keep the whole [B, H * W] rank alive with
+        # the result (a graph's outputs stay allocated)
+        nsig = rank[:, -1].clone()
         pos = torch.arange(n, dtype=torch.int32, device=dev)
         spill = k + (pos & 1023)
         slot = torch.where(nzm & (rank <= k), rank - 1, spill).long()
@@ -529,9 +581,13 @@ class FrameCodec:
         encode at that quantile, and the packed metadata of each); the
         base-layer fields are the same tensors in all of them, their
         transfer forms valid for every candidate's truncation."""
+        return self._stage("eb_multi_hostq", self._eb_multi_hostq, u, mn, mx,
+                           target, self._stage_input(qs, torch.float32))
+
+    def _eb_multi_hostq(self, u, mn, mx, target, qs):
+        """The eager stage; ``qs``: floats, or their f32 tensor."""
         dataq, const, dc, ci = self._hostq_prelude(u, mn, mx)
-        res = self._eb_multi_core(dataq, mn, mx, const, dc, ci, target,
-                                  [float(q) for q in qs])
+        res = self._eb_multi_core(dataq, mn, mx, const, dc, ci, target, qs)
         return res, [self._pack_meta(r) for r in res]
 
     def _eb_multi_core(self, data_ref, mn, mx, const, dc, ci, target, qs):
@@ -633,22 +689,29 @@ class FrameCodec:
         return (cand.gather(1, idx[:, None])[:, 0],
                 geom.spec.nplanes - 1 - idx // nk, idx % nk)
 
-    def encode_rate_targeted_hostq(self, u, mn, mx, base_budget: int,
-                                   resid_budget: int):
+    def encode_rate_targeted_hostq(self, u, mn, mx, base_budget_bits: int,
+                                   resid_budget_bits: int):
         """NONE / SPARSIFICATION_FACTOR encode from host-quantised input:
         each layer is cut at the last candidate within its bit budget
-        (``resid_budget <= 0``: no residual layer, NONE mode).  There is no
-        error criterion, so no candidate is evaluated, no target is
+        (``resid_budget_bits <= 0``: no residual layer, NONE mode).  There
+        is no error criterion, so no candidate is evaluated, no target is
         tightened and no chunk mask is searched (km = -1).  Returns
         (:class:`EncodeResult`, its packed metadata)."""
+        return self._stage("rate_hostq", self._rate_hostq, u, mn, mx,
+                           self._stage_input((base_budget_bits,
+                                              resid_budget_bits),
+                                             torch.int64))
+
+    def _rate_hostq(self, u, mn, mx, budgets):
+        """The eager stage; ``budgets``: the int64 tensor [2] of the base
+        and residual bit budgets (:meth:`_stage_input`)."""
         dataq, const, dc, ci = self._hostq_prelude(u, mn, mx)
-        res = self._rate_core(dataq, mn, mx, const, dc, ci, base_budget,
-                              resid_budget)
+        res = self._rate_core(dataq, mn, mx, const, dc, ci, budgets)
         return res, self._pack_meta(res)
 
-    def _rate_core(self, data_ref, mn, mx, const, dc, ci, base_budget,
-                   resid_budget):
+    def _rate_core(self, data_ref, mn, mx, const, dc, ci, budgets):
         nb, dev = ci.shape[0], ci.device
+        base_budget, resid_budget = budgets.unbind()
         an_b = bp.analyze(ci, self.base.spec)
         bits_b, bs, ks = self._rate_pick(self.base, an_b, base_budget)
         base_rec = self._base_recon(self._recon_at(an_b, self.base, bs, ks),
@@ -656,8 +719,8 @@ class FrameCodec:
         rmin, rmax, dcr, cir = self._resid_transform(data_ref - base_rec)
         an_r = bp.analyze(cir, self.resid.spec)
         bits_r, bs_r, ks_r = self._rate_pick(self.resid, an_r, resid_budget)
-        use_resid = resid_budget > 0
-        bits_r = bits_r if use_resid else torch.zeros_like(bits_r)
+        use_resid = resid_budget > 0  # 0-d: NONE mode has no residual
+        bits_r = torch.where(use_resid, bits_r, 0)
         nokm = torch.full((nb,), -1, dtype=torch.int64, device=dev)
         noseg = torch.zeros((nb, 2 + 2 * self.base.spec.nchunks),
                             dtype=torch.int64, device=dev)
@@ -671,12 +734,12 @@ class FrameCodec:
             segs_q=noseg, segs_pure=noseg, segs_r=noseg,
             rmin=rmin, rmax=rmax, dc_r=dcr, max_step_r=an_r.max_step,
             resid_coef=cir, resid_bits=bits_r,
-            resid_feasible=torch.full_like(const, use_resid),
-            skip_residual=torch.full_like(const, not use_resid),
+            resid_feasible=use_resid.expand_as(const).clone(),
+            skip_residual=(~use_resid).expand_as(const).clone(),
             **self._forms("base", ci, an_b.max_step, bs),
             **self._forms("resid", cir, an_r.max_step,
-                          bs_r if use_resid else
-                          torch.full_like(bs_r, self.resid.spec.nplanes)))
+                          torch.where(use_resid, bs_r,
+                                      self.resid.spec.nplanes)))
 
     # the f32 entry points: the frames themselves on the device, scaled
     # there (bit-equal to the host's u16 scaling) and used unquantised as
@@ -690,16 +753,22 @@ class FrameCodec:
     def encode_error_bounded_multi(self, data, target, qs):
         """:meth:`encode_error_bounded` under every base quantile of
         ``qs``, sharing the base layer (one result per quantile)."""
-        mn, mx, const, dc, ci = self._base_transform(data)
-        return self._eb_multi_core(data, mn, mx, const, dc, ci, target,
-                                   [float(q) for q in qs])
+        return self._stage("eb_multi", self._eb_multi, data, target,
+                           self._stage_input(qs, torch.float32))
 
-    def encode_rate_targeted(self, data, base_budget: int,
-                             resid_budget: int):
-        """NONE / SPARSIFICATION_FACTOR encode of f32 frames [B, H, W]."""
+    def _eb_multi(self, data, target, qs):
         mn, mx, const, dc, ci = self._base_transform(data)
-        return self._rate_core(data, mn, mx, const, dc, ci, base_budget,
-                               resid_budget)
+        return self._eb_multi_core(data, mn, mx, const, dc, ci, target, qs)
+
+    def encode_rate_targeted(self, data, base_budget_bits: int,
+                             resid_budget_bits: int):
+        """NONE / SPARSIFICATION_FACTOR encode of f32 frames [B, H, W]."""
+        return self._stage("rate", self._rate, data, self._stage_input(
+            (base_budget_bits, resid_budget_bits), torch.int64))
+
+    def _rate(self, data, budgets):
+        mn, mx, const, dc, ci = self._base_transform(data)
+        return self._rate_core(data, mn, mx, const, dc, ci, budgets)
 
     # ---------------- decode ----------------
 
@@ -722,6 +791,10 @@ class FrameCodec:
         """Dequantise + inverse transform from float coefficient planes
         (the structural bitstream decode runs in the native host coder or
         in :meth:`decode`)."""
+        return self._stage("recon", self._recon, coef_b, mn, mx, dc,
+                           has_resid, coef_r, rmin, rmax, dcr)
+
+    def _recon(self, coef_b, mn, mx, dc, has_resid, coef_r, rmin, rmax, dcr):
         out = self._base_recon(coef_b, mn, mx, dc)
         resid = self._resid_recon(coef_r, rmin, rmax, dcr)
         return out + torch.where(has_resid[:, None, None], resid, 0.0)
@@ -741,6 +814,12 @@ class FrameCodec:
     def recon_packed(self, v16_b, bend_b, mn, mx, dc, has_resid, v16_r,
                      bend_r, rmin, rmax, dcr):
         """Reconstruct frames from the native coder's packed u16 state."""
-        return self.recon(self._unpack16_coef(v16_b, bend_b), mn, mx, dc,
-                          has_resid, self._unpack16_coef(v16_r, bend_r),
-                          rmin, rmax, dcr)
+        return self._stage("recon_packed", self._recon_packed, v16_b, bend_b,
+                           mn, mx, dc, has_resid, v16_r, bend_r, rmin, rmax,
+                           dcr)
+
+    def _recon_packed(self, v16_b, bend_b, mn, mx, dc, has_resid, v16_r,
+                      bend_r, rmin, rmax, dcr):
+        return self._recon(self._unpack16_coef(v16_b, bend_b), mn, mx, dc,
+                           has_resid, self._unpack16_coef(v16_r, bend_r),
+                           rmin, rmax, dcr)

@@ -53,7 +53,13 @@ def _canonical_maps(hp: int, wp: int, levels: int, nshards: int):
 class SpatialFrameCodec(FrameCodec):
     """FrameCodec of data row ``data_index`` of ``mesh`` whose frames are
     row-sharded over the row's ``space`` axis; runs on this rank's lead
-    device of the row.  The same EncodeResult as the dense codec."""
+    device of the row.  The same EncodeResult as the dense codec.
+
+    Its stages run eagerly, by decision: the halo DWT exchanges boundary
+    rows between the shards through ``mesh.exchange``, point-to-point
+    messages between ranks that one process's CUDA graph cannot hold."""
+
+    graphed = False
 
     def __init__(self, h: int, w: int, config: EBCCConfig, mesh,
                  data_index: int = 0):

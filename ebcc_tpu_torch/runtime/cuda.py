@@ -18,6 +18,7 @@ import os
 import re
 import shutil
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -63,9 +64,14 @@ class Kernel:
 
     ``sources``: the ``.cu`` file first, then every header it includes; the
     build is keyed on all of them.  ``launches`` counts calls of
-    :meth:`launch`, the only place the wrapper starts the kernel; a caller
-    resets it to 0 to count one run.
+    :meth:`launch`, the only place the wrapper starts the kernel, and the
+    kernel's launches inside every CUDA graph replay
+    (:func:`count_launches`, :func:`add_launches`); a caller resets it to
+    0 to count one run.
     """
+
+    # every kernel of the process, for the graph replays' launch counts
+    _all: weakref.WeakSet = weakref.WeakSet()
 
     def __init__(self, name: str, entry: str, argtypes: list,
                  library: str | None = None):
@@ -75,6 +81,7 @@ class Kernel:
         self.launches = 0
         self.build_seconds = None
         self._lib = None
+        Kernel._all.add(self)
 
     @property
     def sources(self) -> list[str]:
@@ -111,6 +118,28 @@ class Kernel:
         if rc != 0:
             msg = lib.ebcc_cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: launch failed: {msg} ({rc})")
+
+
+def count_launches(fn):
+    """Run ``fn()`` while a CUDA graph captures it and return (its result,
+    {kernel: launches it recorded}).  A capture calls the C entries but
+    runs nothing on the device, so every kernel's count is put back as it
+    was; :func:`add_launches` adds the recorded launches at each replay."""
+    before = {k: k.launches for k in Kernel._all}
+    try:
+        out = fn()
+    finally:
+        recorded = {k: k.launches - before.get(k, 0) for k in Kernel._all}
+        for k in recorded:
+            k.launches = before.get(k, 0)
+    return out, {k: n for k, n in recorded.items() if n}
+
+
+def add_launches(recorded: dict) -> None:
+    """Count the launches of one replay of a graph whose capture recorded
+    ``recorded`` ({kernel: launches}, from :func:`count_launches`)."""
+    for k, n in recorded.items():
+        k.launches += n
 
 
 def build_all(kernels) -> None:

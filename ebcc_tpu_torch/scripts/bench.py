@@ -12,7 +12,9 @@ JSON line with bench.py's keys: ``metric``, ``value`` (grid points/s of
 the best single compress + decompress run of up to 3, after a warm-up),
 ``unit``, ``vs_baseline`` (against the same 2.0e6 grid points/s),
 ``device_encode_pts_per_s`` (a warm ``encode_error_bounded_hostq`` of one
-batch on resident u16 input, synchronised, best of 3), ``wall_encode_s``,
+batch on resident u16 input, synchronised, best of 3: on a card, replays
+of the stage's CUDA graph, captured by the second warm call),
+``wall_encode_s``,
 ``wall_decode_s`` and ``cr``; and the port's own: ``maxerr``, ``frames``,
 ``device`` and ``card`` (nvidia-smi's name and power limit).
 
@@ -61,7 +63,9 @@ def device_encode_pts(frames: np.ndarray, config: EBCCConfig,
                       device: torch.device) -> float:
     """Grid points/s of a warm ``encode_error_bounded_hostq`` of the batch
     ``frames`` on resident u16 input (as ``api.compress`` makes it),
-    synchronised (``torch.cuda.synchronize``), best of 3."""
+    synchronised (``torch.cuda.synchronize``), best of 3 after the warm
+    calls (on a card, the eager call and the capture; the timed calls are
+    replays)."""
     b, h, w = frames.shape
     codec = FrameCodec(h, w, config, device)
     inputs = api._batch_inputs(frames, 0, b, config, None, device)

@@ -137,12 +137,18 @@ def mean_seconds(fn, reps: int, device: torch.device) -> float:
     return start.elapsed_time(end) / 1e3 / reps
 
 
+# warm calls before a timed one: a graphed codec stage runs eagerly at its
+# key's first call and captures its CUDA graph at the second
+WARM_CALLS = 2
+
+
 def best_seconds(fn, reps: int, device: torch.device) -> float:
-    """Least seconds of one ``fn()`` call over ``reps`` calls after one warm
-    call: CUDA events around each call on a card (from the first launch
-    to the end of the last, host gaps between them included), the host
-    clock on the CPU."""
-    fn()
+    """Least seconds of one ``fn()`` call over ``reps`` calls after
+    :data:`WARM_CALLS` warm calls: CUDA events around each call on a card
+    (from the first launch to the end of the last, host gaps between them
+    included), the host clock on the CPU."""
+    for _ in range(WARM_CALLS):
+        fn()
     sync(device)
     best = float("inf")
     for _ in range(reps):
@@ -163,8 +169,9 @@ def best_seconds(fn, reps: int, device: torch.device) -> float:
 
 def best_wall(fn, reps: int, device: torch.device) -> float:
     """Least host seconds of ``fn()`` followed by a synchronise, over
-    ``reps`` calls after one warm call."""
-    fn()
+    ``reps`` calls after :data:`WARM_CALLS` warm calls."""
+    for _ in range(WARM_CALLS):
+        fn()
     sync(device)
     best = float("inf")
     for _ in range(reps):

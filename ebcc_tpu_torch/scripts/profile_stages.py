@@ -12,14 +12,15 @@ the JAX script's keys:
 
 * encode: ``0_host_scale_u16`` (native u16 quantisation and the targets),
   ``1_device_encode_search`` (``encode_error_bounded_hostq``, synchronised;
-  the best of 3),
+  the best of 3 warm calls: on a card, replays of its CUDA graph),
   ``2_device_to_host_transfer_small`` (the packed metadata's copy,
   ``api._unpack_meta`` and the early pure decision; ``2_meta_bytes``),
   ``3_coef_fetch_plus_native_pack``, ``4_zstd``, ``5_assemble`` (frames
   and container);
 * decode: ``6_unzstd`` (headers and both layers' zstd),
   ``7_native_base_decode``, ``8_native_resid_decode``, ``9_device_recon``
-  (``recon_packed`` on resident planes, synchronised);
+  (``recon_packed`` on resident planes, synchronised; a warm call: on a
+  card a replay);
 * ``max_err``, ``total_enc`` and ``total_dec`` (the sums of the encode and
   decode stages; unlike the JAX script's, stage 0 and the port's upload
   and fetch stages below are in them);
@@ -37,8 +38,17 @@ The port's own keys: ``0a_h2d_upload`` (the u16 planes, ranges and
 targets to the device; ``*_bytes``, ``*_gbps``), ``1a_encode_enqueue``
 (the encode call's return, before the synchronise, in the run of stage
 1's best wall: when it is close to that wall, the host's launches set the
-pace), ``3a_coef_d2h`` (``api._start_transfers`` and ``api._fetch_coef``
-of each layer the api packs: the form its flags pick, copied
+pace), ``1c_encode_capture`` (the key's second call, synchronised: on a
+card the capture and the first replay, the first call having run the
+stage eagerly;
+``1c_capture_reserved_bytes`` / ``1c_capture_held_bytes``, the device
+memory the capture added to the graphs' pool and the static inputs and
+outputs it keeps, None on the CPU), ``1e_encode_eager`` and
+``1e_encode_eager_enqueue`` (the eager stage
+``FrameCodec._eb_multi_hostq``, as stage 1 and 1a), ``9c_recon_capture``
+(the second ``recon_packed`` call, the capture), ``3a_coef_d2h``
+(``api._start_transfers`` and ``api._fetch_coef`` of each layer the api
+packs: the form its flags pick, copied
 ``non_blocking`` into pinned memory and waited on; ``3a_form_base`` /
 ``3a_form_resid`` "sparse", "u8", "u16" or "int32", None where the layer
 is not fetched; ``3a_nsig_max_*`` and ``3a_bucket_*``, the sparse pairs
@@ -166,13 +176,20 @@ def profile_stages(data, device="cuda", config=None, qbase=None,
                          f"{cfg.max_batch}")
     qbase = base_error_quantile() if qbase is None else float(qbase)
     codec = FrameCodec(h, w, cfg, dev)
-    # warm-up: kernel builds, first launches, the allocator's pools
-    codec.encode_error_bounded_hostq(
-        *api._batch_inputs(frames, 0, n, cfg, None, dev), qbase)
+    # the key's first call (kernel builds, first launches; eager on a card
+    # too), then its second: on a card the capture
+    warm = api._batch_inputs(frames, 0, n, cfg, None, dev)
+    codec.encode_error_bounded_hostq(*warm, qbase)
+    common.sync(dev)
+    t0 = time.perf_counter()
+    codec.encode_error_bounded_hostq(*warm, qbase)
     common.sync(dev)
     t = {"batch": n, "device": str(dev), "card": common.card_line(dev),
          "timing": "host clock after a synchronise; device stages by " +
-         common.timing(dev)}
+         common.timing(dev), "1c_encode_capture": time.perf_counter() - t0}
+    [entry] = codec.graph_entries().values() or [None]
+    t["1c_capture_reserved_bytes"] = entry and entry.reserved_bytes
+    t["1c_capture_held_bytes"] = entry and entry.held_bytes
 
     t0 = time.perf_counter()
     u, mnb, mxb, maxq = api._scale_u16_host(frames)
@@ -190,17 +207,24 @@ def profile_stages(data, device="cuda", config=None, qbase=None,
     t["0a_h2d_upload_gbps"] = _gbps(t["0a_h2d_upload_bytes"],
                                     t["0a_h2d_upload"])
 
-    t["1_device_encode_search"] = float("inf")
-    for _ in range(reps):  # the run with the best synchronised wall
-        common.sync(dev)
-        t0 = time.perf_counter()
-        res, meta = codec.encode_error_bounded_hostq(*inputs, qbase)
-        enqueued = time.perf_counter() - t0
-        common.sync(dev)
-        wall = time.perf_counter() - t0
-        if wall < t["1_device_encode_search"]:
-            t["1_device_encode_search"], t["1a_encode_enqueue"] = wall, \
-                enqueued
+    def encode_rows(encode, wall_key, enqueue_key):
+        t[wall_key] = float("inf")
+        for _ in range(reps):  # the run with the best synchronised wall
+            common.sync(dev)
+            t0 = time.perf_counter()
+            out = encode()
+            enqueued = time.perf_counter() - t0
+            common.sync(dev)
+            wall = time.perf_counter() - t0
+            if wall < t[wall_key]:
+                t[wall_key], t[enqueue_key] = wall, enqueued
+        return out
+
+    encode_rows(lambda: codec._eb_multi_hostq(*inputs, (qbase,)),
+                "1e_encode_eager", "1e_encode_eager_enqueue")
+    res, meta = encode_rows(
+        lambda: codec.encode_error_bounded_hostq(*inputs, qbase),
+        "1_device_encode_search", "1a_encode_enqueue")
 
     stages, (res_marked, meta_marked) = device_stage_breakdown(
         codec, *inputs, qbase, reps)
@@ -339,8 +363,12 @@ def _decode_stages(blob: bytes, codec: FrameCodec, t: dict) -> np.ndarray:
     common.sync(dev)
     t["9a_h2d_upload"] = time.perf_counter() - t0
 
-    recon(*args)  # warm-up, as the JAX script's
+    recon(*args)  # warm-up, as the JAX script's: eager
     common.sync(dev)
+    t0 = time.perf_counter()
+    recon(*args)  # on a card the capture
+    common.sync(dev)
+    t["9c_recon_capture"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rec_dev = recon(*args)
     common.sync(dev)

@@ -92,7 +92,8 @@ def run_mesh_mode(devices=(1, 2, 4), frames_per_device: int = 2,
             for d in used:
                 common.sync(d)
 
-        run()  # warm-up: kernel builds, first launches
+        for _ in range(common.WARM_CALLS):  # kernel builds, the capture
+            run()
         best = float("inf")
         for _ in range(reps):
             t0 = time.perf_counter()

@@ -292,9 +292,11 @@ def test_cpu_encode_backend_runs_the_native_encoder(blobs, pointwise,
 def test_device_encode_backends_build_the_codec(blobs, monkeypatch,
                                                 backend):
     """"device" and "auto" encode on the given device through FrameCodec
-    (the reference's tunnel routing of "auto" is not ported)."""
+    (the reference's tunnel routing of "auto" is not ported): one codec
+    built, through the api's codec cache (cleared first)."""
     data, out = blobs
     cfg, _ = _configs(ResidualMode.MAX_ERROR, 0.25)
+    api._codec_for_cached.cache_clear()
     built = []
     real = api.FrameCodec
     monkeypatch.setattr(api, "FrameCodec",

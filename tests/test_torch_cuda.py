@@ -643,3 +643,105 @@ def test_cuda_drivers_match_cpu_and_native(card, tmp_path, monkeypatch,
         frames[0], ResidualMode.MAX_ERROR, 0.5, "cpu")
     assert all(k.launches > 0 for k in kernels), [k.launches
                                                    for k in kernels]
+
+
+def _hostq_inputs(codec, data, pointwise):
+    """One batch's u16 planes, ranges and targets on the card, as
+    ``api._batch_inputs`` makes them (a per-point field for pointwise)."""
+    from ebcc_tpu_torch import api
+    u, mn, mx, maxq = api._scale_u16_host(data)
+    if pointwise:
+        eb = 0.2 + 0.3 * np.random.default_rng(8).random(data.shape)
+        tgt = api.pointwise_targets(data, eb.astype(np.float32), 1.0) - \
+            maxq[:, None, None]
+    else:
+        tgt = np.full(len(data), 0.25, np.float32) - maxq
+    return (api._upload_u16(u, codec.device), *(
+        torch.from_numpy(np.ascontiguousarray(a)).to(codec.device)
+        for a in (mn, mx, tgt)))
+
+
+def _assert_same_result(ours, eager):
+    (res, meta), (eres, emeta) = ours, eager
+    assert torch.equal(meta, emeta)
+    for name in res._fields:
+        a, b = getattr(res, name), getattr(eres, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("pointwise", [False, True],
+                         ids=["max_error", "pointwise"])
+def test_cuda_graph_replay_equals_eager(card, pointwise):
+    """``encode_error_bounded_hostq`` on the card replays its CUDA graph
+    (eager at the key's first call, captured at the second, replayed
+    after) and equals the eager stage on every ``EncodeResult`` field and
+    the packed metadata, batch after batch and at a second base quantile,
+    which replays the same graph (the quantile is a tensor input); the
+    replays count the kernels' launches."""
+    codec = FrameCodec(H, W, EBCCConfig(max_batch=B), card)
+    batches = [_hostq_inputs(codec, _field(B, seed=s), pointwise)
+               for s in (9, 10, 12)]
+    for k in (l0.KERNEL, fe.KERNEL, idwt.KERNEL):
+        k.launches = 0
+    outs = [codec.encode_error_bounded_hostq(*b, 1e-6) for b in batches]
+    assert len(codec.graph_entries()) == 1
+    [entry] = codec.graph_entries().values()
+    assert entry.replays == 2 and entry.launches
+    # the eager first call launched each kernel once a batch, the capture
+    # none, each of the two replays once
+    assert set(entry.launches) == {l0.KERNEL, fe.KERNEL, idwt.KERNEL}
+    assert all(k.launches == 3 * n for k, n in entry.launches.items())
+    for out, b in zip(outs, batches):
+        eres, emetas = codec._eb_multi_hostq(*b, (1e-6,))
+        _assert_same_result(out, (eres[0], emetas[0]))
+    q2 = codec.encode_error_bounded_hostq(*batches[0], 1e-3)
+    assert len(codec.graph_entries()) == 1 and entry.replays == 3
+    eres, emetas = codec._eb_multi_hostq(*batches[0], (1e-3,))
+    _assert_same_result(q2, (eres[0], emetas[0]))
+
+
+def test_cuda_graph_prefetch_keeps_each_batch(card):
+    """Four batches in flight two at a time (``prefetch_batches=2``) give
+    the containers of one batch at a time (``prefetch_batches=0``) and of
+    the native encoder: a replay never overwrites a batch still in
+    flight."""
+    data = _field(8, seed=11)
+    cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.25, base_cr=100,
+                     max_batch=2, prefetch_batches=2)
+    blob = ebcc_tpu_torch.compress(data, cfg, device="cuda")
+    serial = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.25,
+                        base_cr=100, max_batch=2, prefetch_batches=0)
+    assert blob == ebcc_tpu_torch.compress(data, serial, device="cuda")
+    assert blob == cpu_encoder.compress(data, cfg)
+    rec = ebcc_tpu_torch.decompress(blob, cfg, device="cuda")
+    np.testing.assert_array_equal(rec, cpu_decoder.decompress(blob))
+
+
+def test_cuda_graph_threads_get_their_own_containers(card):
+    """Threads compressing stacks of one shape at once (a numcodecs filter
+    under dask) share the codec and its graphs and each get the native
+    encoder's container of its own stack."""
+    import threading
+    cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.25, base_cr=100,
+                     max_batch=2)
+    stacks = [_field(4, seed=20 + i) for i in range(4)]
+    for _ in range(2):  # the eager first call, then the capture
+        ebcc_tpu_torch.compress(stacks[0], cfg, device="cuda")
+    blobs, errors = {}, []
+
+    def work(i):
+        try:
+            for _ in range(3):
+                blobs[i] = ebcc_tpu_torch.compress(stacks[i], cfg,
+                                                   device="cuda")
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for i, stack in enumerate(stacks):
+        assert blobs[i] == cpu_encoder.compress(stack, cfg), i

@@ -114,6 +114,33 @@ def test_sparsification_byte_identical_to_native_selections_of_jax():
     assert rec.shape == data.shape and np.isfinite(rec).all()
 
 
+@pytest.mark.parametrize("entry", ["hostq", "f32"])
+def test_rate_budgets_by_keyword_in_both_packages(entry):
+    """Both packages' ``FrameCodec.encode_rate_targeted(_hostq)`` name the
+    budgets ``base_budget_bits`` / ``resid_budget_bits``: the same keyword
+    call gives the same selections in each."""
+    data = _data()
+    cfg, jcfg = _rate_configs(ResidualMode.SPARSIFICATION_FACTOR)
+    budgets = dict(base_budget_bits=int(32 * H * W / RATE_CR),
+                   resid_budget_bits=int(8 * H * W / 10.0))
+    jbudgets = {k: np.full(len(data), v, np.int32) for k, v in
+                budgets.items()}
+    ours, theirs = FrameCodec(H, W, cfg, "cpu"), JaxCodec(H, W, jcfg)
+    if entry == "hostq":
+        u, mn, mx, _ = api._scale_u16_host(data)
+        res, _ = ours.encode_rate_targeted_hostq(
+            api._upload_u16(u, "cpu"), torch.from_numpy(mn),
+            torch.from_numpy(mx), **budgets)
+        jres, _ = theirs.encode_rate_targeted_hostq(u, mn, mx, **jbudgets)
+    else:
+        res = ours.encode_rate_targeted(torch.from_numpy(data), **budgets)
+        jres = theirs.encode_rate_targeted(data, **jbudgets)
+    for f in ("bs_q", "ks_q", "base_bits_q", "bs_r", "ks_r", "resid_bits"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(res, f)).astype(np.int64),
+            np.asarray(getattr(jres, f)).astype(np.int64), err_msg=f)
+
+
 def test_rate_pick_agrees_with_both_formulations():
     """The JAX package takes the number of candidates within the budget,
     less one; the native encoder stops at the first candidate over it.

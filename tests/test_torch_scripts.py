@@ -108,7 +108,10 @@ KEYS = {
         # the JAX script recorded a failed breakdown; the port raises
         {"device_stage_breakdown_error"},
         {"0a_h2d_upload", "0a_h2d_upload_bytes", "0a_h2d_upload_gbps",
-         "1a_encode_enqueue", "2_meta_bytes", "3a_coef_d2h",
+         "1a_encode_enqueue", "1c_encode_capture",
+         "1c_capture_reserved_bytes", "1c_capture_held_bytes",
+         "1e_encode_eager", "1e_encode_eager_enqueue", "9c_recon_capture",
+         "2_meta_bytes", "3a_coef_d2h",
          "3a_coef_d2h_bytes", "3a_coef_int32_bytes", "3a_form_base",
          "3a_form_resid", "3a_nsig_max_base", "3a_nsig_max_resid",
          "3a_bucket_base", "3a_bucket_resid",
