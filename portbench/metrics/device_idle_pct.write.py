@@ -1,0 +1,9 @@
+"""The share of the profiled sub-window in which no kernel, copy or fill
+ran on the card."""
+
+
+def read(ctx):
+    tr = ctx.trace
+    if tr is None or not tr.device or tr.window_s() <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s() / tr.window_s())
