@@ -39,8 +39,9 @@ bench.py):
   ``info`` / ``sweep``, counted, and ``filter-string``) on the 32 frames
   and ``python -m ebcc_tpu_torch compress`` as a subprocess, each held
   against the in-process compress; the error metrics on the CLI's decoded
-  frames against numpy, and a ``trace_to`` trace of one compress; the HDF5
-  wrappers where h5py is installed (it says so where it is not); and the
+  frames against numpy, and a ``trace_to`` trace of one compress naming
+  the program's spans; the HDF5 wrappers where h5py is installed (it says
+  so where it is not); and the
   trained ``ConvForecaster`` on 9 frames of an advecting 721x1440 texture,
   then its ``PredictiveCompressor`` chain of 12 frames against
   persistence's (counted);
@@ -387,7 +388,8 @@ def metrics_phase(data, rec, eb, dev, tmpdir, compress_batch, tag):
     range, max error and violations of ``eb`` equal to the same float32
     computation, RMSE and PSNR within METRIC_RTOL of float64; then a
     ``trace_to`` trace around ``compress_batch()`` that must name its
-    span and K1's column pass."""
+    span, the program's spans of the compress path (``graph.replay`` on a
+    card) and K1's column pass."""
     from ebcc_tpu_torch.ops import metrics
     from ebcc_tpu_torch.utils import profiling
     x, y, e = (torch.from_numpy(a).to(dev) for a in (data, rec, eb))
@@ -430,13 +432,18 @@ def metrics_phase(data, rec, eb, dev, tmpdir, compress_batch, tag):
     with open(files[0]) as f:
         names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
     k1 = sorted(n for n in names if "eval_lift_cols" in n)
+    program = ["compress", "compress.scale", "coder.pack", "zstd"]
+    if dev.type == "cuda":
+        program.append("graph.replay")
+    missing = [n for n in ["chip_smoke_compress"] + program
+               if n not in names]
     print(f"trace_to: {os.path.getsize(files[0])} bytes, {len(names)} "
-          f"event names; span 'chip_smoke_compress' "
-          f"{'chip_smoke_compress' in names}; K1 column pass {k1[:1]}; "
+          f"event names; spans {program} and 'chip_smoke_compress' "
+          f"missing {missing}; K1 column pass {k1[:1]}; "
           f"Timer.report() {timer.report()} {tag}")
-    if "chip_smoke_compress" not in names or (dev.type == "cuda" and
-                                               not k1):
-        raise AssertionError("the trace lacks the span or eval_lift_cols")
+    if missing or (dev.type == "cuda" and not k1):
+        raise AssertionError(f"the trace lacks the spans {missing} or "
+                             "eval_lift_cols")
 
 
 def forecast_phase(dev, drive, tag, h=H, w=W, steps=150):

@@ -58,6 +58,7 @@ from collections import OrderedDict
 
 import torch
 
+from ..utils import profiling
 from . import cuda
 
 # graphs alive in the process, over every codec and device
@@ -212,56 +213,75 @@ class GraphCache:
             self._pools[device] = torch.cuda.graph_pool_handle()
         return capture(fn, args, device, self._pools[device])
 
-    def _call(self, key, fn, args, device):
-        """The key's first call eagerly, its second a capture and a replay,
-        every later one a replay."""
-        entry = self.graphs.get(key)
-        if entry is None and key not in self._seen:
+    def _kind(self, key) -> str:
+        """The span name of the key's next call: its first runs eagerly,
+        its second captures (and replays), every later one replays."""
+        if key in self.graphs:
+            return "graph.replay"
+        return "graph.capture" if key in self._seen else "graph.eager"
+
+    def _call(self, kind, key, fn, args, device):
+        """One call of the key as :meth:`_kind` said."""
+        if kind == "graph.eager":
             self._seen[key] = None
             while len(self._seen) > MAX_SEEN:
                 self._seen.popitem(last=False)
             return fn(*args)
-        if entry is None:
+        if kind == "graph.capture":
             entry = self._capture(fn, args, device)
             self.graphs[key] = entry
             while len(self.graphs) > self.maxsize:
                 self.graphs.popitem(last=False)
         else:
+            entry = self.graphs[key]
             self.graphs.move_to_end(key)
         return entry.replay(args)
 
     def run(self, owner: int, stage: str, fn, args, device: torch.device):
         """``fn(*args)``: eager at its key's first call, then a replay of
-        the key's graph (captured at the second call)."""
+        the key's graph (captured at the second call).  Spans: the wait for
+        the lock (``graph.lock_wait``), then the call with the lock held
+        (``graph.eager``, ``graph.capture`` or ``graph.replay``)."""
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         key = (owner, stage_key(stage, args))
-        with self._lock:
+        with profiling.span("graph.lock_wait"):
+            self._lock.acquire()
+        try:
             while self._dead:
                 dead = self._dead.pop()
                 for k in [k for k in self.graphs if k[0] == dead]:
                     del self.graphs[k]
                 for k in [k for k in self._seen if k[0] == dead]:
                     del self._seen[k]
-            if device.type != "cuda":
-                return self._call(key, fn, args, device)
-            with torch.cuda.device(device):
-                caller = torch.cuda.current_stream(device)
-                stream = self._streams.get(device)
-                if stream is None:
-                    stream = self._streams[device] = torch.cuda.Stream(device)
-                stream.wait_stream(caller)
-                for a in args:
-                    if torch.is_tensor(a):
-                        # read on the stream: the caller may free it now
-                        a.record_stream(stream)
-                with torch.cuda.stream(stream):
-                    out = self._call(key, fn, args, device)
-                caller.wait_stream(stream)
-                for t in flatten(out)[1]:
-                    # made on the stream, used and freed on the caller's
-                    t.record_stream(caller)
-                return out
+            kind = self._kind(key)
+            with profiling.span(kind, stage=stage):
+                if device.type != "cuda":
+                    return self._call(kind, key, fn, args, device)
+                return self._run_on_stream(kind, key, fn, args, device)
+        finally:
+            self._lock.release()
+
+    def _run_on_stream(self, kind, key, fn, args, device):
+        """:meth:`_call` on the cache's stream of ``device``, after the
+        caller's stream and before its next work."""
+        with torch.cuda.device(device):
+            caller = torch.cuda.current_stream(device)
+            stream = self._streams.get(device)
+            if stream is None:
+                stream = self._streams[device] = torch.cuda.Stream(device)
+            stream.wait_stream(caller)
+            for a in args:
+                if torch.is_tensor(a):
+                    # read on the stream: the caller may free it now
+                    a.record_stream(stream)
+            with torch.cuda.stream(stream):
+                out = self._call(kind, key, fn, args, device)
+            caller.wait_stream(stream)
+            for t in flatten(out)[1]:
+                # made on the stream, used and freed on the caller's
+                t.record_stream(caller)
+            return out
 
     def drop_owner(self, owner: int) -> None:
         """Release ``owner``'s graphs at the next :meth:`run`."""

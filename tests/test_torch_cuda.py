@@ -745,3 +745,37 @@ def test_cuda_graph_threads_get_their_own_containers(card):
     assert not errors, errors
     for i, stack in enumerate(stacks):
         assert blobs[i] == cpu_encoder.compress(stack, cfg), i
+
+
+def test_cuda_graph_spans_name_each_kind_of_call(card):
+    """On the card a key's three first calls record ``graph.eager``,
+    ``graph.capture`` and ``graph.replay``, each after its
+    ``graph.lock_wait``, with the stage's name; inside ``compress`` every
+    ``graph.*`` span carries the call's request id."""
+    import time
+    from ebcc_tpu_torch.runtime import graphs
+    from ebcc_tpu_torch.utils import profiling
+
+    def stage(x):
+        return (x * 2 + 1,)
+
+    x = torch.arange(8.0, device=card)
+    cache = graphs.GraphCache()
+    t0 = time.perf_counter()
+    outs = [cache.run(0, "st", stage, (x,), card) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o[0], x * 2 + 1) for o in outs)
+    recs = [r for r in profiling.records() if r.start >= t0]
+    assert [r.name for r in recs] == [
+        "graph.lock_wait", "graph.eager", "graph.lock_wait", "graph.capture",
+        "graph.lock_wait", "graph.replay"]
+    assert all(r.attrs == {"stage": "st"} for r in recs[1::2])
+    cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.25, base_cr=100,
+                     max_batch=2)
+    t1 = time.perf_counter()
+    ebcc_tpu_torch.compress(_field(6, seed=31), cfg, device="cuda")
+    recs = [r for r in profiling.records() if r.start >= t1]
+    (call,) = [r for r in recs if r.name == "compress"]
+    kinds = [r for r in recs if r.name.startswith("graph.")]
+    assert {r.name for r in kinds} >= {"graph.lock_wait", "graph.replay"}
+    assert all(r.request == call.request for r in kinds)
