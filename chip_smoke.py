@@ -1177,6 +1177,7 @@ def main() -> int:
     from ebcc_tpu_torch.ops import idwt
     from ebcc_tpu_torch.ops import idwt_probe as ip
     from ebcc_tpu_torch.ops import level0_counts as l0
+    from ebcc_tpu_torch.ops import pack as pk
     from ebcc_tpu_torch.runtime import cpu_decoder, cpu_encoder, cuda, native
     from ebcc_tpu_torch.scripts import idwt_probe as probe_cli
 
@@ -1186,7 +1187,8 @@ def main() -> int:
     tag = f"[{card}]"
     kernels = (l0.KERNEL, fe.KERNEL, idwt.KERNEL)  # the codec paths'
     probe_kernels = tuple(ip.KERNELS.values())
-    all_kernels = kernels + probe_kernels
+    # the stream packer: on every encode path, checked where it is timed
+    all_kernels = kernels + (pk.KERNEL,) + probe_kernels
 
     def reset_counts():
         for k in all_kernels:
@@ -1820,38 +1822,110 @@ def main() -> int:
           f"walls {sum(t_per_q):.3f} s "
           f"({', '.join(f'{t:.3f}' for t in t_per_q)}) {tag}")
 
-    phase(f"transfer forms ({N_FRAMES} frames {H}x{W}, batches of {BATCH}): "
-          "each layer's form, its bytes and copy time on four paths; the "
-          "containers with the fetch forced to the int32 planes; compress "
-          "and decompress at prefetch_batches 0 and 2")
+    phase(f"packed streams ({N_FRAMES} frames {H}x{W}, batches of {BATCH}): "
+          "the packer kernel against the native coder and its plain version "
+          "on both layers of the first batch, its time and bound; the "
+          "containers of the card's packer against the host coder's; the "
+          "arenas' bytes and copy; compress and decompress at "
+          "prefetch_batches 0 and 2")
+    for name, counts_ in (("MAX_ERROR", launches_max),
+                          ("pointwise", launches_pw)):
+        if counts_[pk.KERNEL.name] == 0:
+            raise AssertionError(f"the packer never launched in the {name} "
+                                 "path")
     int32_bytes = BATCH * hp * wp * 4  # one batch's base planes
-    letter = {"sparse": "S", "pack8": "8", "pack16": "6", "coef": "I"}
+    res0, _ = codec.encode_error_bounded_hostq(u_dev, mn_d, mx_d, tgt, 1e-6)
+    counts_b = bp.segment_counts(an, codec.base.spec)
+    counts_r = bp.segment_counts(an_r, codec.resid.spec)
+    sel_b = torch.maximum(
+        codec._arena_bits(res0.km_q, res0.segs_q, res0.base_bits_q),
+        codec._arena_bits(res0.km_pure, res0.segs_pure, res0.base_bits_pure))
+    pack_cases = {
+        "base at the selections": (ci, an, counts_b, sel_b),
+        "base whole": (ci, an, counts_b, counts_b.flatten(1).sum(-1)),
+        "resid whole": (cir, an_r, counts_r, counts_r.flatten(1).sum(-1))}
+    pack_times = {}
+    for label, (c_, a_, n_, t_) in pack_cases.items():
+        spec_ = (codec.base if c_ is ci else codec.resid).spec
+        arena = pk.pack_streams(c_, a_, n_, t_, spec_)
+        torch.cuda.synchronize()
+        ref = native.coder_encode_batch(
+            c_.cpu().numpy(), t_.cpu().numpy(), spec_.group_levels,
+            spec_.nplanes, spec_.nchunks)
+        got = arena.cpu().numpy()
+        for i, t_i in enumerate(t_.tolist()):
+            nb_ = (t_i + 7) // 8
+            if not (np.array_equal(got[i, :nb_], ref[i, :nb_]) and
+                    not got[i, nb_:].any()):
+                raise AssertionError(f"packer, {label}: frame {i} differs "
+                                     "from the native coder's arena")
+        cap = arena.shape[1]
+        if not torch.equal(pk.pack_streams_ref(a_, t_, spec_), arena):
+            raise AssertionError(f"packer, {label}: differs from its plain "
+                                 "version")
+        ms = cuda_ms(lambda: pk.pack_streams(c_, a_, n_, t_, spec_))
+        traced, _ = kernel_times(lambda: pk.pack_streams(c_, a_, n_, t_,
+                                                         spec_))
+        kern = traced.get("pack_segments")
+        dev_ms_ = None if kern is None else kern[0] / 1e3
+        plain_ms = (cuda_ms(lambda: pk.pack_streams_ref(a_, t_, spec_),
+                            reps=2) if label == "base at the selections"
+                    else None)
+        packed = int(((t_ + 7) // 8).sum())
+        # every input byte read once (coefficients, the smax pyramid, the
+        # counts, the truncations) and the packed bytes written once
+        nbytes = (c_.numel() * 4 + n_.numel() * 8 + t_.numel() * 8 + packed +
+                  sum(a_.smax[k].numel() * 4
+                      for k in range(1, spec_.group_levels + 1)))
+        bms, by = bound(nbytes, 0)
+        share = ("not measured" if dev_ms_ is None
+                 else f"{100 * bms / dev_ms_:.1f}%")
+        pack_times[label] = (ms, dev_ms_, plain_ms, bms, by, packed)
+        print(f"packer, {label} [{BATCH}, {spec_.height}, {spec_.width}]: "
+              f"{BATCH}/{BATCH} frames equal to the native arena and to the "
+              f"plain version; {packed} B packed ({packed / BATCH:.0f} a "
+              f"frame) in an arena of {cap} B a frame; call {ms:.4f} ms "
+              f"(with the arena's zero fill), kernel {ms_text(dev_ms_)}, "
+              f"plain {ms_text(plain_ms)}; bound {bms:.4f} ms ({by}), "
+              f"{share} of it by the kernel's device time {tag}")
 
-    def frame_forms(resn, layer):
-        """Each frame's smallest exact form alone, one letter a frame
-        (S sparse, 8 u8, 6 u16, I int32)."""
-        return "".join(letter[et_api._form(
-            {f"{layer}_{f}_ok": resn[f"{layer}_{f}_ok"][i:i + 1]
-             for f in ("sparse", "pack8", "pack16")}, layer)]
-            for i in range(len(resn["mn"])))
+    def host_packed(cfg_):
+        """A codec on the card whose streams the host's native coder
+        packs from the int32 planes (the CPU's route)."""
+        hc = FrameCodec(H, W, cfg_, dev)
+        hc.packs_streams = False
+        return hc
 
-    def copy_ms(tensors):
-        """Best of 3 of the api's pinned copy of ``tensors``, waited on."""
-        best = float("inf")
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            et_api._D2H(tensors).get(next(iter(tensors)))
-            best = min(best, time.perf_counter() - t0)
-        return best * 1e3
+    def same_as_host(label, ours, theirs):
+        if ours != theirs:
+            raise AssertionError(f"{label}: the card packer's containers "
+                                 "differ from the host coder's")
+        print(f"{label}: containers of the card packer equal to the host "
+              f"coder's {tag}")
 
-    def forms_report(label, cfg_, qs_, n_, ebound=None):
+    same_as_host("MAX_ERROR", blob, ebcc_tpu_torch.compress(
+        data, cfg, codec=host_packed(cfg)))
+    os.environ["EBCC_DISABLE_PURE_JP2_FALLBACK"] = "1"
+    try:
+        same_as_host("residual", rblob, ebcc_tpu_torch.compress(
+            data[:BATCH], cfg, codec=host_packed(cfg), qbase=1e-3))
+    finally:
+        del os.environ["EBCC_DISABLE_PURE_JP2_FALLBACK"]
+    same_as_host("POINTWISE", blob_pw, ebcc_tpu_torch.compress(
+        data, cfg_pw, error_bound=eb, codec=host_packed(cfg_pw)))
+    codec_for = et_api._codec_for
+    et_api._codec_for = lambda h_, w_, c_, d_: host_packed(c_)
+    try:
+        same_as_host("multi-q", mblobs, ebcc_tpu_torch.compress_multi_q(
+            data, qs, cfg, device="cuda"))
+    finally:
+        et_api._codec_for = codec_for
+
+    def arena_report(label, cfg_, qs_, n_, ebound=None):
         """The first ``n_`` frames through the multi-quantile encode at
-        ``qs_`` and the api's fetch, batch by batch: for each candidate
-        and layer the drain fetches, the batch's form, each frame's, max
-        nsig, the bucket, the bytes beside the int32 planes', and the
-        pinned copy of each (ms); then the api's fetch wall of the
-        batch."""
+        ``qs_`` and the api's transfer, batch by batch: the bytes of the
+        packed streams that cross (trimmed to the batch's longest
+        truncation) beside the int32 planes', and the copy's wall."""
         frames_ = data[:n_]
         eb_ = et_api._pointwise_bound(frames_, cfg_, ebound)
         codec_ = FrameCodec(H, W, cfg_, dev)
@@ -1864,104 +1938,34 @@ def main() -> int:
             resn_all = et_api._fetch_small(rds, codec_, cfg_)
             t0 = time.perf_counter()
             et_api._start_transfers(rds, resn_all)
-            fetched = {}
-            for k, (rd, resn) in enumerate(zip(rds, resn_all)):
-                for layer in ("base", "resid")[k > 0:]:
-                    if layer == "base" or et_api._keeps_resid(resn):
-                        fetched[k, layer] = et_api._fetch_coef(resn, rd,
-                                                               layer)
+            for rd in rds:
+                rd["_arenas"].wait()
             wall = (time.perf_counter() - t0) * 1e3
-            for (k, layer), f in fetched.items():
-                resn, rd = resn_all[k], rds[k]
-                form = et_api._form(resn, layer)
-                names = ([f"{layer}_sp_delta", f"{layer}_sp_val"]
-                         if form == "sparse" else [f"{layer}_{form}"])
-                arrays = f[1:3] if f[0] == "sparse" else f[1:2]
-                coef = rd[f"{layer}_coef"]
-                print(f"{label} frames {lo}-{hi - 1} q={qs_[k]} {layer}: "
-                      f"form {form}, by frame {frame_forms(resn, layer)}; "
-                      f"max nsig {int(resn[f'{layer}_nsig'].max())} of "
-                      f"cap {getattr(codec_, f'{layer}_sparse_k')}, bucket "
-                      f"{arrays[0].shape[1] if form == 'sparse' else None}; "
-                      f"{sum(a.nbytes for a in arrays)} B fetched vs "
-                      f"{coef.numel() * 4} B of int32 planes; copy "
-                      f"{copy_ms({n: rd[n] for n in names}):.3f} ms vs int32 "
-                      f"{copy_ms({'coef': coef}):.3f} ms {tag}")
-            print(f"{label} frames {lo}-{hi - 1}: the api's fetch of "
-                  f"{len(fetched)} layer form(s), started and waited on: "
-                  f"{wall:.3f} ms {tag}")
+            for k, rd in enumerate(rds):
+                for layer, a_ in rd["_arenas"].host.items():
+                    print(f"{label} frames {lo}-{hi - 1} q={qs_[k]} {layer}:"
+                          f" {a_.nbytes} B of packed streams "
+                          f"({a_.shape[1]} B a frame) vs "
+                          f"{rd[f'{layer}_coef'].numel() * 4} B of int32 "
+                          f"planes")
+            print(f"{label} frames {lo}-{hi - 1}: the api's copy, started "
+                  f"and waited on: {wall:.3f} ms {tag}")
 
-    def forced_int32(fn):
-        """``fn()`` with the api's fetch forced to the int32 rung."""
-        orig = et_api._fetch_coef
-        et_api._fetch_coef = lambda res, rd, layer: (
-            "dense", et_api._host(rd, f"{layer}_coef"), None)
-        try:
-            return fn()
-        finally:
-            et_api._fetch_coef = orig
-
-    def forms_equal(label, forms_blobs, forced_blobs, native_blobs):
-        for fb, ib, nb in zip(forms_blobs, forced_blobs, native_blobs):
-            if ib != fb:
-                raise AssertionError(f"{label}: the forced-int32 container "
-                                     "differs from the forms' container")
-            same_as_native(fb, nb, f"{label} (forms = forced int32)")
-
-    forms_report("MAX_ERROR", cfg, (1e-6,), N_FRAMES)
-    forms_equal("MAX_ERROR", [blob], [forced_int32(
-        lambda: ebcc_tpu_torch.compress(data, cfg, device="cuda"))], [nblob])
+    arena_report("MAX_ERROR", cfg, (1e-6,), N_FRAMES)
     os.environ["EBCC_DISABLE_PURE_JP2_FALLBACK"] = "1"
     try:
-        forms_report("residual", cfg, (1e-3,), BATCH)
-        rforced = forced_int32(lambda: ebcc_tpu_torch.compress(
-            data[:BATCH], cfg, device="cuda", qbase=1e-3))
+        arena_report("residual", cfg, (1e-3,), BATCH)
     finally:
         del os.environ["EBCC_DISABLE_PURE_JP2_FALLBACK"]
-    forms_equal("residual", [rblob], [rforced], [rnative])
-    forms_report("POINTWISE", cfg_pw, (1e-6,), N_FRAMES, eb)
-    forms_equal("POINTWISE", [blob_pw], [forced_int32(
-        lambda: ebcc_tpu_torch.compress(data, cfg_pw, error_bound=eb,
-                                        device="cuda"))], [nblob_pw])
-    forms_report("multi-q", cfg, qs, N_FRAMES)
-    forms_equal("multi-q", mblobs, forced_int32(
-        lambda: ebcc_tpu_torch.compress_multi_q(data, qs, cfg,
-                                                device="cuda")),
-                [mnative[q] for q in qs])
-
-    # the forms' device work on the first batch: pack_small and sparsify
-    # against their run on the CPU, then their launches under the profiler
-    res0, meta0 = codec.encode_error_bounded_hostq(u_dev, mn_d, mx_d, tgt,
-                                                   1e-6)
-    low_b = torch.minimum(res0.bs_q, res0.bs_pure)
-    low_r = torch.where(res0.skip_residual, codec.resid.spec.nplanes,
-                        res0.bs_r)
-    for layer, ci_, step, low in (("base", ci, an.max_step, low_b),
-                                  ("resid", res0.resid_coef,
-                                   res0.max_step_r, low_r)):
-        on_card = codec._forms(layer, ci_, step, low)
-        on_cpu = codec._forms(layer, ci_.cpu(), step.cpu(), low.cpu())
-        differ = [f for f, v in on_card.items()
-                  if not torch.equal(v.cpu(), on_cpu[f])]
-        if differ:
-            raise AssertionError(f"{layer} forms on the card differ from "
-                                 f"the CPU's in {differ}")
-    if not torch.equal(codec._pack_meta(res0), meta0):
-        raise AssertionError("_pack_meta differs from the encode's meta")
-    print("pack_small / sparsify of both layers on the card equal to their "
-          "CPU run, field by field")
-    forms_k, _ = kernel_times(lambda: (
-        codec._forms("base", ci, an.max_step, low_b),
-        codec._forms("resid", res0.resid_coef, res0.max_step_r, low_r),
-        codec._pack_meta(res0)))
+    arena_report("POINTWISE", cfg_pw, (1e-6,), N_FRAMES, eb)
     enc_k, _ = kernel_times(lambda: codec.encode_error_bounded_hostq(
         u_dev, mn_d, mx_d, tgt, 1e-6))
-    print(f"the forms and the packed metadata of one batch: "
-          f"{sum(n for _, n in forms_k.values())} launches, device "
-          f"{ms_text(device_ms(forms_k))}, of the encode's "
-          f"{sum(n for _, n in enc_k.values())} launches and "
-          f"{ms_text(device_ms(enc_k))} {tag}")
-    del res0, meta0
+    pack_k = enc_k.get("pack_segments")
+    print(f"the encode of one batch: {sum(n for _, n in enc_k.values())} "
+          f"launches, device {ms_text(device_ms(enc_k))}, of which the "
+          f"packer {ms_text(None if pack_k is None else pack_k[0] / 1e3)} "
+          f"in {0 if pack_k is None else pack_k[1]} launches {tag}")
+    del res0
 
     walls = {0: [], 2: []}
     for pf in (0, 2, 2, 0):
@@ -2369,12 +2373,11 @@ def main() -> int:
     print(f"profile_stages: {BATCH}/{BATCH} frames equal to the main path's; "
           f"encode stages {st['total_enc']!r} s (device encode "
           f"{st['1_device_encode_search']!r} s, enqueued in "
-          f"{st['1a_encode_enqueue']!r} s; coefficient d2h: base form "
-          f"{st['3a_form_base']}, residual {st['3a_form_resid']}, "
-          f"{st['3a_coef_d2h_bytes']} B (int32 planes "
-          f"{st['3a_coef_int32_bytes']} B) in {st['3a_coef_d2h']!r} s, the "
-          f"copy alone {st['3a_coef_d2h_pinned']!r} s; packing "
-          f"{st['3b_native_pack']!r} s), decode stages "
+          f"{st['1a_encode_enqueue']!r} s; packed on the "
+          f"{st['3_packed_on']}, {st['3a_arena_d2h_bytes']} B of packed "
+          f"streams (int32 planes {st['3a_coef_int32_bytes']} B) copied in "
+          f"{st['3a_arena_d2h']!r} s; the host's part "
+          f"{st['3b_host_pack']!r} s), decode stages "
           f"{st['total_dec']!r} s; wall {t_stages:.3f} s {tag}")
 
     phase(f"profile_transforms at [{BATCH}, 768, 1472] in process")
@@ -2654,6 +2657,18 @@ def main() -> int:
                    idwt_err, idwt_key, idwt_bound),
              also_replaces="scripts/pallas_idwt_probe.py:122"),
     ] + [probe_entry(name) for name in ip.PLAIN]}
+    p_ms, p_dev, p_plain, p_bms, p_by, p_bytes = pack_times[
+        "base at the selections"]
+    record["kernels"].append({
+        "name": "pack", "route": "cuda", "source": "ebcc_tpu_torch/csrc/"
+        "pack.cu", "replaces": None, "instead_of": "native/ebcc_coder.cc "
+        "(the host coder)", "launches_max_error_path":
+        launches_max[pk.KERNEL.name], "launches_pointwise_path":
+        launches_pw[pk.KERNEL.name], **new_paths(pk.KERNEL.name),
+        "ms": p_ms, "device_ms": p_dev, "plain_ms": p_plain,
+        "bound_ms": p_bms, "bound_by": p_by, "packed_bytes": p_bytes,
+        "shape": [BATCH, 768, 1472],
+        "others": {k: v[:2] + v[3:4] for k, v in pack_times.items()}})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
           f"included {tag}")
     print(json.dumps(record))

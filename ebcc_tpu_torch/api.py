@@ -11,11 +11,12 @@ native CPU encoder's on the same input and config.
 
 Per batch the host quantises to u16 (native, the same code the CPU encoder
 runs), the device runs transform, analysis and every truncation search
-(:class:`.codec.pipeline.FrameCodec`), and the host packs the chosen
-selections with the native bitplane coder, applies zstd and assembles the
-frames.  Decode runs the native structural decoder on the host and the
-reconstruction on the device, or the whole native CPU decoder when
-``config.decode_backend == "cpu"``.
+(:class:`.codec.pipeline.FrameCodec`) and, on a card, packs each layer's
+bitstream (:mod:`.ops.pack`); the host slices the chosen selections out of
+the packed streams (off a card it packs them with the native bitplane
+coder), applies zstd and assembles the frames.  Decode runs the native
+structural decoder on the host and the reconstruction on the device, or
+the whole native CPU decoder when ``config.decode_backend == "cpu"``.
 
 As in the JAX package, codecs are cached per (frame geometry, config,
 device) (:func:`_codec_for`) and every batch of a call has the call's
@@ -25,19 +26,20 @@ the upload see the real frames only), and the padded frames' results are
 dropped before the host uses them.  So one CUDA graph per stage and key
 (:mod:`.runtime.graphs`) serves every batch of a call and of later calls.
 
-The device-to-host traffic is the JAX package's: the small fields cross
-in one packed int32 tensor, and each layer's coefficients in the smallest
-exact form its flags allow (sparse (delta, value) pairs trimmed to the
-populated prefix -> u8 -> u16 -> int32).  ``config.prefetch_batches``
-device batches stay in flight: each copy is ``non_blocking`` into pinned
-host memory, fenced by a CUDA event (:class:`_D2H`), and the host drains
-the oldest batch while later ones compute.
+The device-to-host traffic: the small fields cross in one packed int32
+tensor, then each layer's packed streams, trimmed to the bytes of the
+batch's longest truncation; no coefficient plane crosses.
+``config.prefetch_batches`` device batches stay in flight: each copy is
+``non_blocking`` into pinned host memory, fenced by a CUDA event
+(:class:`_D2H`), and the host drains the oldest batch while later ones
+compute.
 
 Each stage of the compress path records a span (:mod:`.utils.profiling`):
 ``compress`` around a call, ``compress.prepare``, ``compress.scale``,
 ``compress.upload``, ``d2h.start`` / ``d2h.wait`` around the copies back,
-``compress.drain``, ``coder.pack`` and ``zstd`` (the graph cache adds
-``graph.*``).
+``compress.drain``, ``coder.pack`` (its ``layer``, ``where`` it was
+packed, "card" or "host", and its ``frames``) and ``zstd`` (the graph
+cache adds ``graph.*``).
 
 The device is explicit: ``device="cuda"`` (the default) needs a CUDA
 device and raises without one; ``device="cpu"`` runs the same code with
@@ -177,12 +179,16 @@ class _D2H:
         """Whether every copy has completed (never blocks)."""
         return all(ev.query() for ev in self.events)
 
-    def get(self, name) -> np.ndarray:
+    def wait(self) -> None:
+        """Wait for the copies (once)."""
         if not self.waited:
             with profiling.span("d2h.wait"):
                 for ev in self.events:
                     ev.synchronize()
             self.waited = True
+
+    def get(self, name) -> np.ndarray:
+        self.wait()
         return self.host[name].numpy()
 
 
@@ -414,8 +420,8 @@ def _encode_pipelined(n, dispatch, codec, config, h, w):
     per candidate quantile, the packed metadata of each); the padded
     frames' rows are dropped here.  The metadata's copy starts at once;
     when the oldest pending batch is drained, every later one whose
-    metadata has arrived is primed first (its coefficient forms' copies
-    start, so they overlap the drain's host packing).  Returns one list of
+    metadata has arrived is primed first (its packed streams' copies
+    start, so they overlap the drain's host work).  Returns one list of
     container frames per candidate, in frame order."""
     out, pending = None, []
     bsz = min(config.max_batch, n)
@@ -477,39 +483,47 @@ def _fetch_small(rds, codec, config):
     return out
 
 
-def _keeps_resid(resn) -> bool:
-    """Whether some frame keeps residual bits (its form must cross)."""
-    return not np.all(resn["const"] | resn["skip_residual"] |
-                      resn["decided_pure"])
+def _truncations(resn_all):
+    """The stream bits the host reads of one batch: (the shared base
+    layer's [B], each candidate's residual layer's [B]).  The base covers
+    every candidate's selection, except those of frames decided pure,
+    which emit only the pure variant; a residual covers its frames that
+    keep one."""
+    r0 = resn_all[0]
+    trunc_b = np.maximum.reduce(
+        [_arena_bits(r0, "pure", r0["base_bits_pure"])] +
+        [np.where(r["decided_pure"], 0, _arena_bits(r, "q", r["base_bits_q"]))
+         for r in resn_all])
+    trunc_r = [np.where(r["skip_residual"] | r["decided_pure"], 0,
+                        _arena_bits(r, "r", r["resid_bits"]))
+               for r in resn_all]
+    return trunc_b, trunc_r
 
 
 def _start_transfers(rds, resn_all):
-    """Begin the copy of each layer's chosen coefficient form (sparse
-    pairs trimmed to the populated prefix; the trimmed views replace the
-    full ones in the result dict, so :func:`_fetch_coef` takes the same
-    tensors): the shared base layer once, each candidate's residual layer
-    where some frame keeps residual bits.  One shot per batch."""
-    if "_forms" in rds[0]:
+    """Begin the copy of each packed arena the host reads, trimmed to the
+    bytes of the batch's longest truncation: the shared base layer once,
+    each candidate's residual layer where some frame keeps residual bits.
+    An empty arena (the codec packs no stream off a card) crosses nothing:
+    the host packs that layer.  Each result dict gets its truncations
+    (``_trunc``) and its copies (``_arenas``).  One shot per batch."""
+    if "_arenas" in rds[0]:
         return
-    for k, (rd, resn) in enumerate(zip(rds, resn_all)):
-        layers = ("base",) if k == 0 else ()
-        if _keeps_resid(resn):
-            layers += ("resid",)
+    trunc_b, trunc_r = _truncations(resn_all)
+    for k, rd in enumerate(rds):
+        rd["_trunc"] = {"base": trunc_b, "resid": trunc_r[k]}
         fetch = {}
-        for layer in layers:
-            form = _form(resn, layer)
-            if form == "sparse":
-                rd.update(_trim_sparse(rd, layer, resn[f"{layer}_nsig"]))
-                for f in ("sp_delta", "sp_val"):
-                    fetch[f"{layer}_{f}"] = rd[f"{layer}_{f}"]
-            else:
-                fetch[f"{layer}_{form}"] = rd[f"{layer}_{form}"]
-        rd["_forms"] = _D2H(fetch)
+        for layer in ("base", "resid") if k == 0 else ("resid",):
+            nbytes = (int(rd["_trunc"][layer].max(initial=0)) + 7) // 8
+            arena = rd[f"{layer}_arena"]
+            if nbytes and arena.shape[1]:
+                fetch[layer] = arena[:, :nbytes]
+        rd["_arenas"] = _D2H(fetch)
 
 
 def _prime(entry, codec, config):
     """Non-blocking cross-batch prefetch: once a pending batch's metadata
-    has arrived, read its small fields and start its coefficient forms'
+    has arrived, read its small fields and start its packed streams'
     copies.  Never waits on an unfinished batch (that would serialise the
     device's work with the host's)."""
     _, rds = entry
@@ -521,9 +535,7 @@ def _prime(entry, codec, config):
 
 def _drain(entry, codec, config, h, w) -> list[list[bytes]]:
     """One device batch -> its container frames, one list per candidate.
-    The candidates share their base layer: one base arena covers every
-    candidate's selection, except those of frames decided pure, which
-    emit only the pure variant."""
+    The candidates share their base layer (:func:`_truncations`)."""
     n, rds = entry
     resn_all = rds[0].pop("_resn", None)
     if resn_all is None:
@@ -531,18 +543,10 @@ def _drain(entry, codec, config, h, w) -> list[list[bytes]]:
     for resn in resn_all:
         _check_plane_budget(resn, config)
     _start_transfers(rds, resn_all)
-    r0 = resn_all[0]
-    trunc_b = np.maximum.reduce(
-        [_arena_bits(r0, "pure", r0["base_bits_pure"])] +
-        [np.where(r["decided_pure"], 0, _arena_bits(r, "q", r["base_bits_q"]))
-         for r in resn_all])
-    base_stream = _pack_layer_streams(r0, codec, rds[0], "base", trunc_b)
+    base_stream = _pack_layer_streams(codec, rds[0], "base")
     out = []
     for rd, resn in zip(rds, resn_all):
-        trunc_r = np.where(resn["skip_residual"] | resn["decided_pure"], 0,
-                           _arena_bits(resn, "r", resn["resid_bits"]))
-        streams = (base_stream,
-                   _pack_layer_streams(resn, codec, rd, "resid", trunc_r))
+        streams = (base_stream, _pack_layer_streams(codec, rd, "resid"))
         zblobs = _zstd_stage(resn, streams, n, config)
         out.append([_assemble_frame(resn, i, h, w, config, streams, zblobs)
                     for i in range(n)])
@@ -626,82 +630,33 @@ def _zstd_stage(res, streams, n, config):
     return dict(zip(idx, zblobs))
 
 
-def _sparse_bucket(kmax: int, kcap: int) -> int:
-    """Pairs fetched of a sparse form: ``kmax`` rounded up to a multiple of
-    8192 (at least 4096), at most the cap."""
-    if kmax <= 4096:
-        return min(kcap, 4096)
-    return min(kcap, -(-int(kmax) // 8192) * 8192)
-
-
-def _trim_sparse(rd, layer, counts) -> dict:
-    """One layer's sparse pair trimmed to the bucket covering max(nsig):
-    only the populated prefix crosses to the host."""
-    names = (f"{layer}_sp_delta", f"{layer}_sp_val")
-    k = _sparse_bucket(int(np.max(np.asarray(counts), initial=0)),
-                       rd[names[0]].shape[1])
-    return {nm: rd[nm][:, :k] for nm in names}
-
-
-def _form(res, layer) -> str:
-    """The smallest exact coefficient form of one layer over the batch:
-    "sparse" -> "pack8" -> "pack16" -> "coef" (int32)."""
-    for form in ("sparse", "pack8", "pack16"):
-        if res[f"{layer}_{form}_ok"].all():
-            return form
-    return "coef"
-
-
-def _host(rd, name) -> np.ndarray:
-    """A deferred field on the host: from the batch's started copy when it
-    holds it, else copied now."""
-    forms = rd.get("_forms")
-    if forms is not None and name in forms.host:
-        return forms.get(name)
-    return rd[name].cpu().numpy()
-
-
-def _fetch_coef(res, rd, layer):
-    """The smallest exact coefficient form of one layer on the host, as
-    ``("sparse", deltas, vals, counts, shifts)`` or ``("dense", plane,
-    shifts or None)`` for the native coder.  The exact rung is the int32
-    plane itself: the JAX package's f32 copy of it works around slow int32
-    fetches over its device link, and the native coder takes int32."""
-    form = _form(res, layer)
-    if form == "sparse":
-        rd.update(_trim_sparse(rd, layer, res[f"{layer}_nsig"]))
-        return ("sparse", _host(rd, f"{layer}_sp_delta"),
-                _host(rd, f"{layer}_sp_val"), res[f"{layer}_nsig"],
-                res[f"{layer}_shift"])
-    shifts = {"pack8": res[f"{layer}_shift8"], "pack16": res[f"{layer}_shift"],
-              "coef": None}[form]
-    return ("dense", _host(rd, f"{layer}_{form}"), shifts)
-
-
-def _pack_layer_streams(res, codec, rd, layer, trunc):
-    """Entropy-pack one layer's (coefficients, truncation) pairs with the
-    native host coder, from the form :func:`_fetch_coef` fetches (``res``:
-    the small fields on the host, ``rd``: the device result).  Returns
-    stream(i, bits, km=-1, segs=None): any prefix of the embedded stream up
-    to ``trunc[i]``, or — ``km >= 0``, format v4 — the chunk-masked stream
-    spliced out of the prefix arena (``trunc[i]`` covers that plane's
-    end)."""
+def _pack_layer_streams(codec, rd, layer):
+    """One layer's streams of one batch up to its truncations
+    (``rd["_trunc"]``, :func:`_start_transfers`): the arena the codec
+    packed on the card, or the native host coder's of the int32 planes
+    where the codec packs none.  Returns stream(i, bits, km=-1,
+    segs=None): any prefix of the embedded stream up to the truncation,
+    or — ``km >= 0``, format v4 — the chunk-masked stream spliced out of
+    the prefix arena (the truncation covers that plane's end).  The
+    ``coder.pack`` span says where the layer was packed and how many
+    frames."""
     spec = (codec.base if layer == "base" else codec.resid).spec
+    trunc = rd["_trunc"][layer]
     if int(trunc.max(initial=0)) == 0:
-        # no frame keeps bits of this layer: its coefficients stay put
+        # no frame keeps bits of this layer: nothing to pack
         return lambda i, bits, km=-1, segs=None: b""
-    form = _fetch_coef(res, rd, layer)
-    geo = (spec.group_levels, spec.nplanes, spec.nchunks)
-    with profiling.span("coder.pack"):
-        if form[0] == "sparse":
-            _, deltas, vals, counts, shifts = form
-            arena = _native.coder_encode_batch_sparse(
-                deltas, vals, counts, shifts, spec.height, spec.width,
-                trunc, *geo)
-        else:
-            _, coef, shifts = form
-            arena = _native.coder_encode_batch(coef, trunc, *geo,
-                                               shifts=shifts)
+    copies = rd["_arenas"]
+    if layer in copies.host:
+        copies.wait()
+        with profiling.span("coder.pack", layer=layer, where="card",
+                            frames=len(trunc)):
+            arena = copies.get(layer)
+    else:
+        coef = rd[f"{layer}_coef"].cpu().numpy()
+        with profiling.span("coder.pack", layer=layer, where="host",
+                            frames=len(trunc)):
+            arena = _native.coder_encode_batch(
+                coef, trunc, spec.group_levels, spec.nplanes, spec.nchunks)
 
     def raw(i, bits):
         return _mask_tail(arena[i, : (int(bits) + 7) // 8].tobytes(), bits)

@@ -13,13 +13,14 @@ SPARSIFICATION_FACTOR) cuts each layer at a bit budget without
 evaluating any candidate.
 
 Every stage runs on the device of its input tensors.  The searches keep
-per-frame ``[B]`` tensors and make no host synchronisation; the host sees
-only the chosen selections and one compact transfer form of each layer's
-coefficients (the sparse (delta, value) pairs, or the u8 / u16 packed
-plane, or the exact int32 plane), which the native host coder turns into
-bytes.  The encode takes host-quantised u16 planes (the ``*_hostq`` entry
-points, which :mod:`..api` drives and which also return the small fields
-packed into one int32 tensor) or f32 frames scaled on the device;
+per-frame ``[B]`` tensors and make no host synchronisation.  On a card
+the encode stages also pack each layer's stream, up to the longest
+truncation any of the frame's selections needs (:mod:`..ops.pack`), so
+the host sees only the chosen selections and those packed prefixes; on
+the CPU the host's native coder packs the int32 coefficient planes.  The
+encode takes host-quantised u16 planes (the ``*_hostq`` entry points,
+which :mod:`..api` drives and which also return the small fields packed
+into one int32 tensor) or f32 frames scaled on the device;
 :meth:`FrameCodec.decode` reads packed streams with the torch bit packer.
 ``_dwt`` / ``_idwt`` are the transform's override points (the spatially
 sharded codec's halo DWT).
@@ -47,6 +48,7 @@ import torch.nn.functional as F
 from ..ops import bitplane as bp
 from ..ops import dwt, frame, weights
 from ..ops import fused_eval as fe
+from ..ops import pack
 from ..ops.frame import RESID_SCALE, U16_MAX
 from ..runtime import graphs
 from .config import EBCCConfig
@@ -76,7 +78,7 @@ class EncodeResult(NamedTuple):
     final bit lengths, the format-v4 chunk masks (``km_*`` keep bitmask or
     -1, ``segs_*`` the [2 + 2J] per-segment bit counts of the selection's
     final plane), the exact int32 coefficient planes of both layers and
-    their compact transfer forms (the JAX package's names and dtypes).
+    their packed streams.
     """
 
     mn: torch.Tensor
@@ -111,53 +113,24 @@ class EncodeResult(NamedTuple):
     resid_bits: torch.Tensor
     resid_feasible: torch.Tensor   # bool: base@q + residual meets the bound
     skip_residual: torch.Tensor    # bool: base@q alone meets the bound
-    # compact transfer forms (FrameCodec._pack_small): sign in the top
-    # bit, (mag >> shift) below, coefficients under the lowest coded plane
-    # zeroed.  pack16 is exact when <= 15 planes are coded, pack8 when
-    # <= 7; the host fetches the smallest exact form, the int32 planes
-    # above being the exact fallback
-    base_pack16: torch.Tensor      # uint16 [B, hp, wp]
-    resid_pack16: torch.Tensor     # uint16 [B, hp_r, wp_r]
-    base_pack8: torch.Tensor       # uint8 [B, hp, wp]
-    resid_pack8: torch.Tensor      # uint8 [B, hp_r, wp_r]
-    base_shift: torch.Tensor       # int32 [B] (shift of the 16-bit form)
-    resid_shift: torch.Tensor
-    base_shift8: torch.Tensor      # int32 [B]
-    resid_shift8: torch.Tensor
-    base_pack16_ok: torch.Tensor   # bool [B]
-    resid_pack16_ok: torch.Tensor
-    base_pack8_ok: torch.Tensor
-    resid_pack8_ok: torch.Tensor
-    # sparse form of each layer's pack16 plane (FrameCodec._sparsify):
-    # uint16 position deltas and values, capped at K = hp * wp / 8 pairs;
-    # valid (sparse_ok) when the count fits the cap, every gap fits 16
-    # bits and pack16 is exact
-    base_sp_delta: torch.Tensor    # uint16 [B, K]
-    base_sp_val: torch.Tensor      # uint16 [B, K]
-    base_nsig: torch.Tensor        # int32 [B]
-    base_sparse_ok: torch.Tensor   # bool [B]
-    resid_sp_delta: torch.Tensor   # uint16 [B, K_r]
-    resid_sp_val: torch.Tensor     # uint16 [B, K_r]
-    resid_nsig: torch.Tensor       # int32 [B]
-    resid_sparse_ok: torch.Tensor  # bool [B]
+    # each layer's stream packed on the card (ops/pack.py): a uint8 arena
+    # [B, cap] covering every selection of the frame; [B, 0] off a card,
+    # where the host packs the int32 planes
+    base_arena: torch.Tensor
+    resid_arena: torch.Tensor
 
 
-# EncodeResult fields whose device-to-host copy api.compress defers until
-# the small fields pick the cheapest coefficient form (sparse / u8 / u16 /
-# exact int32); every other field is small and crosses in the packed
-# metadata (FrameCodec._pack_meta / api._unpack_meta)
-DEFERRED_FIELDS = (
-    "base_coef", "resid_coef",
-    "base_pack16", "resid_pack16", "base_pack8", "resid_pack8",
-    "base_sp_delta", "base_sp_val", "resid_sp_delta", "resid_sp_val")
+# EncodeResult fields that stay on the device until the small fields say
+# which of them the host needs (the packed arenas, trimmed; or, off a
+# card, the int32 planes); every other field is small and crosses in the
+# packed metadata (FrameCodec._pack_meta / api._unpack_meta)
+DEFERRED_FIELDS = ("base_coef", "resid_coef", "base_arena", "resid_arena")
 
 # dtypes of the small fields in the packed metadata: f32 bit-cast, bool as
 # 0 / 1, int32 otherwise
 META_F32 = ("mn", "mx", "dc_b", "rmin", "rmax", "dc_r")
 META_BOOL = ("const", "base_feasible_pure", "resid_feasible",
-             "skip_residual", "base_pack16_ok", "resid_pack16_ok",
-             "base_pack8_ok", "resid_pack8_ok", "base_sparse_ok",
-             "resid_sparse_ok")
+             "skip_residual")
 
 
 def _pad_to(x: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
@@ -237,9 +210,8 @@ class FrameCodec:
                                c.nchunks)
         self.resid = _make_geom(h, w, c.residual_levels, c.residual_nplanes,
                                 c.nchunks)
-        # caps of the sparse transfer form: 1 pair per 8 coefficients
-        self.base_sparse_k = (self.base.hp * self.base.wp) // 8
-        self.resid_sparse_k = (self.resid.hp * self.resid.wp) // 8
+        # whether the encode stages pack the streams (on a card)
+        self.packs_streams = self.device.type == "cuda"
         self.wb = torch.from_numpy(weights.weight_array(
             self.base.hp, self.base.wp, c.base_levels)).to(self.device)
         self.wr = torch.from_numpy(weights.weight_array(
@@ -455,87 +427,23 @@ class FrameCodec:
         return bp.recon_truncated(an, bstar, sig_chunks=js, refine_chunks=jr,
                                   spec=geom.spec)
 
-    # ---------------- transfer forms ----------------
+    # ---------------- packed streams ----------------
 
     @staticmethod
-    def _pack_small(ci, max_step, b_low):
-        """Compact u16 / u8 transfer forms of int32 coefficients ``ci``
-        [B, H, W] whose lowest coded plane is ``b_low`` [B].
+    def _arena_bits(km, segs, bits):
+        """Stream bits one selection needs packed: its prefix ``bits``, or
+        — its final plane chunk-masked (``km >= 0``) — that plane's end,
+        from which the host splices the masked stream."""
+        return torch.where(km >= 0, segs.sum(-1), bits)
 
-        The k-bit form holds the sign in the top bit and (mag >> shift)
-        below, shift = max(0, max_step - (k - 2)); it is exact iff shift <=
-        b_low: <= 15 coded planes for u16, <= 7 for u8.  Coefficients below
-        the lowest coded plane (mag < 2**b_low) are zeroed: every bit the
-        stream emits at planes >= b_low is unchanged, and the zeros let the
-        host coder skip rows.  Integer shifts on int32 throughout, cast at
-        the end (mag >> shift stays below 2**(k - 1), as max_step is the top
-        plane).  Returns (p16, p8, shift16, shift8, ok16, ok8)."""
-        b_low = b_low.to(torch.int32)
-        mag_full = ci.abs()
-        coded = (mag_full >> b_low[:, None, None]) > 0
-        neg_coded = (ci < 0) & coded
-
-        def pack(kbits, sign_bit, dtype):
-            shift = (max_step - (kbits - 2)).clamp_min(0).to(torch.int32)
-            mag = torch.where(coded, mag_full >> shift[:, None, None], 0)
-            packed = torch.where(neg_coded, mag + sign_bit, mag)
-            return packed.to(dtype), shift, shift <= b_low
-
-        p16, s16, ok16 = pack(16, 32768, torch.uint16)
-        p8, s8, ok8 = pack(8, 128, torch.uint8)
-        return p16, p8, s16, s8, ok16, ok8
-
-    def _sparsify(self, p16, pack16_ok, k=None):
-        """Sparse (delta, value) transfer form of a packed-u16 plane [B, H,
-        W]: (deltas uint16 [B, k], values uint16 [B, k], nsig int32 [B], ok
-        bool [B]); ``k`` defaults to the base layer's cap.
-
-        The JAX package sorts the positions of the nonzeros; here they are
-        compacted without a sort and without a host synchronisation: each
-        nonzero's slot is its rank (a cumulative sum of the nonzero mask),
-        and one scatter writes positions and values into a preallocated
-        [B, k] pair.  Zeros and nonzeros past the cap land in spill columns
-        past k (spread over 1024 of them, so the scattered stores do not all
-        hit one address), which are dropped.  The same outputs as the sort:
-        the first k nonzeros in position order, the first delta absolute,
-        entries past nsig zero, and ok false past the cap, on a gap over
-        65535, or without an exact pack16."""
-        k = self.base_sparse_k if k is None else k
-        b = p16.shape[0]
-        flat = p16.reshape(b, -1).to(torch.int32)
-        n, dev = flat.shape[1], flat.device
-        nzm = flat != 0
-        rank = torch.cumsum(nzm, 1, dtype=torch.int32)
-        # a copy: a view would keep the whole [B, H * W] rank alive with
-        # the result (a graph's outputs stay allocated)
-        nsig = rank[:, -1].clone()
-        pos = torch.arange(n, dtype=torch.int32, device=dev)
-        spill = k + (pos & 1023)
-        slot = torch.where(nzm & (rank <= k), rank - 1, spill).long()
-        pairs = torch.zeros((2, b, k + 1024), dtype=torch.int32, device=dev)
-        pairs[0].scatter_(1, slot, pos.expand(b, n))
-        pairs[1].scatter_(1, slot, flat)
-        at, vals = pairs[0, :, :k], pairs[1, :, :k]
-        delta = torch.diff(at, dim=1, prepend=torch.zeros_like(at[:, :1]))
-        valid = torch.arange(k, device=dev)[None, :] < nsig[:, None]
-        delta = torch.where(valid, delta, 0)
-        ok = (nsig <= k) & (delta <= 65535).all(-1) & pack16_ok
-        return (delta.to(torch.uint16),
-                torch.where(valid, vals, 0).to(torch.uint16), nsig, ok)
-
-    def _forms(self, layer: str, ci, max_step, b_low) -> dict:
-        """Every transfer form of one layer ("base" or "resid") whose
-        lowest coded plane is ``b_low``: the EncodeResult fields
-        ``{layer}_pack16`` ... ``{layer}_sparse_ok``."""
-        p16, p8, s16, s8, ok16, ok8 = self._pack_small(ci, max_step, b_low)
-        d, v, nsig, oksp = self._sparsify(
-            p16, ok16, self.base_sparse_k if layer == "base"
-            else self.resid_sparse_k)
-        return {f"{layer}_pack16": p16, f"{layer}_pack8": p8,
-                f"{layer}_shift": s16, f"{layer}_shift8": s8,
-                f"{layer}_pack16_ok": ok16, f"{layer}_pack8_ok": ok8,
-                f"{layer}_sp_delta": d, f"{layer}_sp_val": v,
-                f"{layer}_nsig": nsig, f"{layer}_sparse_ok": oksp}
+    def _arena(self, geom, coef, an, counts, trunc):
+        """One layer's streams packed up to ``trunc`` [B] bits on a card
+        (uint8 [B, cap], cap holding any whole stream); off a card an empty
+        [B, 0] arena (the host packs)."""
+        if not self.packs_streams:
+            return torch.empty((coef.shape[0], 0), dtype=torch.uint8,
+                               device=coef.device)
+        return pack.pack_streams(coef, an, counts, trunc.long(), geom.spec)
 
     @staticmethod
     def _pack_meta(res: EncodeResult) -> torch.Tensor:
@@ -580,7 +488,8 @@ class FrameCodec:
         :class:`EncodeResult` per candidate, equal to the single-quantile
         encode at that quantile, and the packed metadata of each); the
         base-layer fields are the same tensors in all of them, their
-        transfer forms valid for every candidate's truncation."""
+        packed arena covering every candidate's truncation (not always
+        the single-quantile encode's, which covers one)."""
         return self._stage("eb_multi_hostq", self._eb_multi_hostq, u, mn, mx,
                            target, self._stage_input(qs, torch.float32))
 
@@ -610,28 +519,31 @@ class FrameCodec:
         sels = [select(q) for q in qs]
         del ev_b  # frees the base layer's workspace
         return self._eb_results(data_ref, mn, mx, const, dc, ci, target,
-                                an_b, sel_pure, sels)
+                                an_b, counts_b, sel_pure, sels)
 
     def _eb_results(self, data_ref, mn, mx, const, dc, ci, target, an_b,
-                    sel_pure, sels):
+                    counts_b, sel_pure, sels):
         """One :class:`EncodeResult` per base selection of ``sels`` (each
         ``(bits, feasible, maxd, bs, ks, mask)`` of :meth:`_search_truncation`
         and :meth:`_search_mask`) beside the pure one ``sel_pure``: the
         decoder's view of each selection, its residual layer, and the
-        transfer forms of both layers."""
+        packed streams of both layers."""
         bits_pure, feas_pure, _, bs_pure, ks_pure, mask_pure = sel_pure
         _, km_pure, mbits_pure, _, _, segs_pure = mask_pure
-        # the base forms are fetched once for every candidate: exact down
-        # to the lowest plane any selection codes
-        b_low = bs_pure
-        for sel in sels:
-            b_low = torch.minimum(b_low, sel[3])
+        # one base arena serves every candidate: it covers the longest
+        # selection (the host's early pure decision only shortens what it
+        # reads)
+        trunc_b = self._arena_bits(km_pure, segs_pure, bits_pure)
+        for bits_q, *_, mask_q in sels:
+            _, km_q, _, _, _, segs_q = mask_q
+            trunc_b = torch.maximum(trunc_b, self._arena_bits(km_q, segs_q,
+                                                              bits_q))
         shared = dict(
             mn=mn, mx=mx, const=const, dc_b=dc, max_step_b=an_b.max_step,
             base_coef=ci, base_bits_pure=bits_pure,
             base_feasible_pure=feas_pure, bs_pure=bs_pure, ks_pure=ks_pure,
             km_pure=km_pure, mbits_pure=mbits_pure, segs_pure=segs_pure,
-            **self._forms("base", ci, an_b.max_step, b_low))
+            base_arena=self._arena(self.base, ci, an_b, counts_b, trunc_b))
         out = []
         for bits_q, _, maxd_q, bs_q, ks_q, mask_q in sels:
             use_mq, km_q, mbits_q, maxd_qm, drop_q, segs_q = mask_q
@@ -647,21 +559,18 @@ class FrameCodec:
                 maxd_q = torch.where(use_mq, maxd_qm, maxd_q)
             skip = maxd_q <= 0  # "Skip Residual 1" (j2k_codec.h:584)
             rl = self._resid_layer(data_ref, target,
-                                   self._base_recon(coef_q, mn, mx, dc))
+                                   self._base_recon(coef_q, mn, mx, dc), skip)
             out.append(EncodeResult(
                 **shared, base_bits_q=bits_q, bs_q=bs_q, ks_q=ks_q,
                 km_q=km_q, mbits_q=mbits_q, segs_q=segs_q,
-                skip_residual=skip, **rl,
-                # a skipped residual codes no plane
-                **self._forms("resid", rl["resid_coef"], rl["max_step_r"],
-                              torch.where(skip, self.resid.spec.nplanes,
-                                          rl["bs_r"]))))
+                skip_residual=skip, **rl))
         return out
 
-    def _resid_layer(self, data_ref, target, base_rec):
+    def _resid_layer(self, data_ref, target, base_rec, skip):
         """The residual layer against one base reconstruction: its
-        transform and its selection at quantile 0 (the EncodeResult fields
-        of the residual layer)."""
+        transform, its selection at quantile 0 and its stream, packed
+        where ``skip`` [B] keeps no residual (the EncodeResult fields of
+        the residual layer)."""
         rmin, rmax, dcr, cir = self._resid_transform(data_ref - base_rec)
         an_r = bp.analyze(cir, self.resid.spec)
         counts_r = bp.segment_counts(an_r, self.resid.spec)
@@ -672,18 +581,22 @@ class FrameCodec:
             0.0)
         _, km_r, mbits_r, _, _, segs_r = self._search_mask(
             self.resid, ev_r, 0.0, bs_r, resid_bits, resid_feas, counts_r)
+        trunc_r = torch.where(skip, 0, self._arena_bits(km_r, segs_r,
+                                                        resid_bits))
         return dict(bs_r=bs_r, ks_r=ks_r, km_r=km_r, mbits_r=mbits_r,
                     segs_r=segs_r, rmin=rmin, rmax=rmax, dc_r=dcr,
                     max_step_r=an_r.max_step, resid_coef=cir,
-                    resid_bits=resid_bits, resid_feasible=resid_feas)
+                    resid_bits=resid_bits, resid_feasible=resid_feas,
+                    resid_arena=self._arena(self.resid, cir, an_r, counts_r,
+                                            trunc_r))
 
     @staticmethod
-    def _rate_pick(geom, an, budget: int):
+    def _rate_pick(geom, counts, budget: int):
         """The last candidate within ``budget`` bits in stream order (plane
         descending, chunk ascending), or the first when none fits:
-        (bits [B], plane [B], fine index [B])."""
-        cand = bp.candidate_bits(bp.segment_counts(an, geom.spec),
-                                 geom.spec).flatten(1)
+        (bits [B], plane [B], fine index [B]); ``counts``: the layer's
+        :func:`..ops.bitplane.segment_counts`."""
+        cand = bp.candidate_bits(counts, geom.spec).flatten(1)
         idx = ((cand <= budget).sum(-1) - 1).clamp(0, cand.shape[-1] - 1)
         nk = 2 * geom.spec.nchunks
         return (cand.gather(1, idx[:, None])[:, 0],
@@ -713,12 +626,15 @@ class FrameCodec:
         nb, dev = ci.shape[0], ci.device
         base_budget, resid_budget = budgets.unbind()
         an_b = bp.analyze(ci, self.base.spec)
-        bits_b, bs, ks = self._rate_pick(self.base, an_b, base_budget)
+        counts_b = bp.segment_counts(an_b, self.base.spec)
+        bits_b, bs, ks = self._rate_pick(self.base, counts_b, base_budget)
         base_rec = self._base_recon(self._recon_at(an_b, self.base, bs, ks),
                                     mn, mx, dc)
         rmin, rmax, dcr, cir = self._resid_transform(data_ref - base_rec)
         an_r = bp.analyze(cir, self.resid.spec)
-        bits_r, bs_r, ks_r = self._rate_pick(self.resid, an_r, resid_budget)
+        counts_r = bp.segment_counts(an_r, self.resid.spec)
+        bits_r, bs_r, ks_r = self._rate_pick(self.resid, counts_r,
+                                             resid_budget)
         use_resid = resid_budget > 0  # 0-d: NONE mode has no residual
         bits_r = torch.where(use_resid, bits_r, 0)
         nokm = torch.full((nb,), -1, dtype=torch.int64, device=dev)
@@ -736,10 +652,8 @@ class FrameCodec:
             resid_coef=cir, resid_bits=bits_r,
             resid_feasible=use_resid.expand_as(const).clone(),
             skip_residual=(~use_resid).expand_as(const).clone(),
-            **self._forms("base", ci, an_b.max_step, bs),
-            **self._forms("resid", cir, an_r.max_step,
-                          torch.where(use_resid, bs_r,
-                                      self.resid.spec.nplanes)))
+            base_arena=self._arena(self.base, ci, an_b, counts_b, bits_b),
+            resid_arena=self._arena(self.resid, cir, an_r, counts_r, bits_r))
 
     # the f32 entry points: the frames themselves on the device, scaled
     # there (bit-equal to the host's u16 scaling) and used unquantised as

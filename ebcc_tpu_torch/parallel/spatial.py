@@ -15,10 +15,6 @@ selections.  Every rank holding a shard of the row runs these stages on
 its own copy (the transform's blocks are exchanged so each has the whole
 frame).
 
-As the JAX package's, this codec turns the sparse transfer form off
-(:meth:`SpatialFrameCodec._sparsify`: zero pairs, ``sparse_ok`` false):
-the host fetches the dense u8 / u16 forms, which give the same bytes.
-
 The padded row count of each layer must split into ``nshards`` blocks of
 a multiple of ``2**levels`` rows, with at least 4 rows at the deepest
 level; :class:`SpatialFrameCodec` checks this at construction.
@@ -29,7 +25,6 @@ from __future__ import annotations
 import functools
 
 import numpy as np
-import torch
 
 from ..codec.config import EBCCConfig
 from ..codec.pipeline import FrameCodec, LayerGeom
@@ -90,15 +85,6 @@ class SpatialFrameCodec(FrameCodec):
             x, self.nspace, geom.levels))
         return self.axis.gather(dwt_sharded.idwt2d_multi_sharded(
             blocks, geom.levels, self.axis), x.device)
-
-    def _sparsify(self, p16, pack16_ok, k=None):
-        """The sparse form is off, as in the JAX package's spatial codec:
-        zero pairs, no count, never valid."""
-        b, dev = p16.shape[0], p16.device
-        z = torch.zeros((b, self.base_sparse_k if k is None else k),
-                        dtype=torch.uint16, device=dev)
-        return (z, z, torch.zeros(b, dtype=torch.int32, device=dev),
-                torch.zeros(b, dtype=torch.bool, device=dev))
 
 
 class SpatialShardedCodec(ShardedCodec):

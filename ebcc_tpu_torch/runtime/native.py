@@ -54,12 +54,6 @@ _SIGNATURES = {
     "ebcc_scale_u16_batch": ([_P, _I, _I, _I, _P, _P, _P, _P], None),
     "ebcc_coder_encode_batch": ([_P, _I, _I, _I, _I, _I, _I, _P, _P, _I64],
                                 None),
-    "ebcc_coder_encode_batch_u16": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                                     _I64], None),
-    "ebcc_coder_encode_batch_u8": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                                    _I64], None),
-    "ebcc_coder_encode_batch_sparse": ([_P, _P, _P, _P, _I64, _I, _I, _I, _I,
-                                        _I, _I, _P, _P, _I64], None),
     "ebcc_coder_decode_batch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _P], None),
     "ebcc_coder_decode_batch_u16": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -226,57 +220,18 @@ def _arena(trunc_bits, n):
 
 
 def coder_encode_batch(coef: np.ndarray, trunc_bits: np.ndarray,
-                       group_levels: int, nplanes: int, nchunks: int,
-                       shifts: np.ndarray | None = None) -> np.ndarray:
-    """Native bitplane encode of coefficient planes [n, h, w]: int32, or
-    the packed transfer forms uint16 (sign in bit 15) and uint8 (sign in
-    bit 7) holding ``mag >> shifts[i]`` below the sign.  Returns a uint8
-    arena [n, cap_bytes]; frame i's stream is
+                       group_levels: int, nplanes: int, nchunks: int
+                       ) -> np.ndarray:
+    """Native bitplane encode of int32 coefficient planes [n, h, w].
+    Returns a uint8 arena [n, cap_bytes]; frame i's stream is
     ``arena[i, : (bits + 7) // 8]`` for any prefix ``bits <= trunc_bits[i]``
     (embedded stream)."""
-    coef = np.asarray(coef)
+    coef = np.ascontiguousarray(coef, np.int32)
     n, h, w = coef.shape
     trunc, out = _arena(trunc_bits, n)
-    geo = (n, h, w, group_levels, nplanes, nchunks, _ptr(trunc), _ptr(out),
-           out.shape[1])
-    if coef.dtype in (np.uint16, np.uint8):
-        if shifts is None:
-            raise ValueError(f"{coef.dtype} coefficients need shifts")
-        coef = np.ascontiguousarray(coef)
-        sh = np.ascontiguousarray(shifts, np.int32)
-        fn = (lib().ebcc_coder_encode_batch_u16 if coef.dtype == np.uint16
-              else lib().ebcc_coder_encode_batch_u8)
-        fn(_ptr(coef), _ptr(sh), *geo)
-    else:
-        coef = np.ascontiguousarray(coef, np.int32)
-        lib().ebcc_coder_encode_batch(_ptr(coef), *geo)
-    return out
-
-
-def coder_encode_batch_sparse(deltas: np.ndarray, vals: np.ndarray,
-                              counts: np.ndarray, shifts: np.ndarray,
-                              h: int, w: int, trunc_bits: np.ndarray,
-                              group_levels: int, nplanes: int, nchunks: int
-                              ) -> np.ndarray:
-    """Native bitplane encode from the sparse (delta, value) form: per
-    frame, ``counts[i]`` uint16 pairs [n, k] (the first delta is the
-    absolute position, each value the uint16 form).  The same arena as
-    :func:`coder_encode_batch` of the dense plane."""
-    deltas = np.ascontiguousarray(deltas, np.uint16)
-    vals = np.ascontiguousarray(vals, np.uint16)
-    n, kcap = deltas.shape
-    if vals.shape != deltas.shape:
-        raise ValueError("deltas and vals differ in shape")
-    counts = np.ascontiguousarray(counts, np.int32)
-    shifts = np.ascontiguousarray(shifts, np.int32)
-    if counts.shape != (n,) or shifts.shape != (n,):
-        raise ValueError("counts and shifts need one value a frame")
-    if int(counts.max(initial=0)) > kcap:
-        raise ValueError("a count exceeds the pairs given")
-    trunc, out = _arena(trunc_bits, n)
-    lib().ebcc_coder_encode_batch_sparse(
-        _ptr(deltas), _ptr(vals), _ptr(counts), _ptr(shifts), kcap, n, h, w,
-        group_levels, nplanes, nchunks, _ptr(trunc), _ptr(out), out.shape[1])
+    lib().ebcc_coder_encode_batch(_ptr(coef), n, h, w, group_levels, nplanes,
+                                  nchunks, _ptr(trunc), _ptr(out),
+                                  out.shape[1])
     return out
 
 

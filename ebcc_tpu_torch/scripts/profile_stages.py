@@ -29,10 +29,10 @@ the JAX script's keys:
   ``bp.segment_counts``, ``bp.candidate_bits``), ``truncation_bisections``
   (both ``_search_truncation``), ``mask_greedy_scans`` (both
   ``_search_mask``) and ``residual_and_packings`` (``_eb_results``: the
-  base recon at the selection, ``_resid_layer`` and both layers' transfer
-  forms, then ``_pack_meta``): CUDA events between the calls of
-  ``FrameCodec._eb_multi_core`` (the host clock on the CPU), best of 3 per
-  stage, and its result must equal the encode's field by field.
+  base recon at the selection, ``_resid_layer`` and, on a card, both
+  layers' packed streams, then ``_pack_meta``): CUDA events between the
+  calls of ``FrameCodec._eb_multi_core`` (the host clock on the CPU), best
+  of 3 per stage, and its result must equal the encode's field by field.
 
 The port's own keys: ``0a_h2d_upload`` (the u16 planes, ranges and
 targets to the device; ``*_bytes``, ``*_gbps``), ``1a_encode_enqueue``
@@ -46,16 +46,14 @@ memory the capture added to the graphs' pool and the static inputs and
 outputs it keeps, None on the CPU), ``1e_encode_eager`` and
 ``1e_encode_eager_enqueue`` (the eager stage
 ``FrameCodec._eb_multi_hostq``, as stage 1 and 1a), ``9c_recon_capture``
-(the second ``recon_packed`` call, the capture), ``3a_coef_d2h``
-(``api._start_transfers`` and ``api._fetch_coef`` of each layer the api
-packs: the form its flags pick, copied
-``non_blocking`` into pinned memory and waited on; ``3a_form_base`` /
-``3a_form_resid`` "sparse", "u8", "u16" or "int32", None where the layer
-is not fetched; ``3a_nsig_max_*`` and ``3a_bucket_*``, the sparse pairs
-fetched a frame; ``*_bytes`` beside ``3a_coef_int32_bytes``, the int32
-planes of the same layers; ``*_gbps``; and ``3a_coef_d2h_pinned`` /
-``*_pinned_gbps``, the same tensors' pinned copy alone, best of 3),
-``3b_native_pack`` (the native coder on the fetched forms),
+(the second ``recon_packed`` call, the capture), ``3a_arena_d2h``
+(``api._start_transfers``: the packed streams of each layer the api
+reads, trimmed to the batch's longest truncation, copied ``non_blocking``
+into pinned memory and waited on; ``*_bytes`` beside
+``3a_coef_int32_bytes``, the int32 planes of the same layers, which no
+longer cross; ``*_gbps``), ``3b_host_pack`` (``api._pack_layer_streams``
+of both layers: the arenas taken off the copies on a card, the native
+coder on the int32 planes off one), ``3_packed_on`` ("card" or "host"),
 ``9a_h2d_upload`` and ``9b_d2h_frames`` (the decoded planes up, the
 frames down into pinned memory), ``batch``, ``device``, ``card`` and
 ``timing``.
@@ -87,8 +85,6 @@ BATCH = 8
 DEVICE_STAGES = ("transform_counts", "truncation_bisections",
                  "mask_greedy_scans", "residual_and_packings")
 # the forms' names as the stage keys print them
-FORM_NAMES = {"sparse": "sparse", "pack8": "u8", "pack16": "u16",
-              "coef": "int32"}
 ENCODE_KEYS = ("0_host_scale_u16", "0a_h2d_upload", "1_device_encode_search",
                "2_device_to_host_transfer_small",
                "3_coef_fetch_plus_native_pack", "4_zstd", "5_assemble")
@@ -120,7 +116,7 @@ def _encode_marked(codec: FrameCodec, u, mn, mx, target, qbase: float,
         sels.append((bits, feas, maxd, bs, ks, mask))
     del ev_b
     res = codec._eb_results(dataq, mn, mx, const, dc, ci, target, an_b,
-                            sels[0], sels[1:])[0]
+                            counts_b, sels[0], sels[1:])[0]
     meta = codec._pack_meta(res)
     marks.mark("residual_and_packings")
     return res, meta
@@ -245,48 +241,26 @@ def profile_stages(data, device="cuda", config=None, qbase=None,
     t["2_device_to_host_transfer_small"] = time.perf_counter() - t0
     t["2_meta_bytes"] = meta.numel() * meta.element_size()
 
-    trunc_b = np.maximum(
-        api._arena_bits(resn, "pure", resn["base_bits_pure"]),
-        np.where(resn["decided_pure"], 0,
-                 api._arena_bits(resn, "q", resn["base_bits_q"])))
-    trunc_r = np.where(resn["skip_residual"] | resn["decided_pure"], 0,
-                       api._arena_bits(resn, "r", resn["resid_bits"]))
-    # the forms _pack_layer_streams fetches (a layer no frame keeps bits of
-    # stays on the device), fetched as _drain fetches them; it then finds
-    # them on the host
-    layers = [layer for layer, trunc in (("base", trunc_b),
-                                         ("resid", trunc_r))
-              if int(trunc.max(initial=0)) > 0]
+    # the packed streams _drain reads, copied as it copies them (a layer
+    # no frame keeps bits of stays on the device)
     t0 = time.perf_counter()
     api._start_transfers([rd], [resn])
-    fetched = {layer: api._fetch_coef(resn, rd, layer) for layer in layers}
-    t["3a_coef_d2h"] = time.perf_counter() - t0
-    for layer in ("base", "resid"):
-        form = api._form(resn, layer) if layer in layers else None
-        t[f"3a_form_{layer}"] = FORM_NAMES.get(form)
-        t[f"3a_nsig_max_{layer}"] = int(resn[f"{layer}_nsig"].max())
-        t[f"3a_bucket_{layer}"] = (fetched[layer][1].shape[1]
-                                   if form == "sparse" else None)
-    t["3a_coef_d2h_bytes"] = sum(
-        a.nbytes for f in fetched.values()
-        for a in f[1:3 if f[0] == "sparse" else 2])
-    t["3a_coef_int32_bytes"] = sum(rd[f"{layer}_coef"].numel() * 4
-                                   for layer in layers)
-    t["3a_coef_d2h_gbps"] = _gbps(t["3a_coef_d2h_bytes"], t["3a_coef_d2h"])
+    rd["_arenas"].wait()
+    t["3a_arena_d2h"] = time.perf_counter() - t0
+    t["3a_arena_d2h_bytes"] = sum(a.nbytes for a in rd["_arenas"].host
+                                  .values())
+    t["3a_coef_int32_bytes"] = sum(
+        rd[f"{layer}_coef"].numel() * 4 for layer in ("base", "resid")
+        if int(rd["_trunc"][layer].max(initial=0)) > 0)
+    t["3a_arena_d2h_gbps"] = _gbps(t["3a_arena_d2h_bytes"],
+                                   t["3a_arena_d2h"])
+    t["3_packed_on"] = "card" if rd["_arenas"].host else "host"
     t0 = time.perf_counter()
-    streams = (api._pack_layer_streams(resn, codec, rd, "base", trunc_b),
-               api._pack_layer_streams(resn, codec, rd, "resid", trunc_r))
-    t["3b_native_pack"] = time.perf_counter() - t0
-    t["3_coef_fetch_plus_native_pack"] = t["3a_coef_d2h"] + \
-        t["3b_native_pack"]
-    t["3a_coef_d2h_pinned"] = t["3a_coef_d2h_pinned_gbps"] = None
-    copied = {k: rd[k] for k in rd["_forms"].host} if "_forms" in rd else {}
-    if dev.type == "cuda" and copied:
-        t["3a_coef_d2h_pinned"] = common.best_wall(
-            lambda: api._D2H(copied).get(next(iter(copied))), reps, dev)
-        t["3a_coef_d2h_pinned_gbps"] = _gbps(t["3a_coef_d2h_bytes"],
-                                             t["3a_coef_d2h_pinned"])
-    del fetched, copied
+    streams = (api._pack_layer_streams(codec, rd, "base"),
+               api._pack_layer_streams(codec, rd, "resid"))
+    t["3b_host_pack"] = time.perf_counter() - t0
+    t["3_coef_fetch_plus_native_pack"] = t["3a_arena_d2h"] + \
+        t["3b_host_pack"]
 
     t0 = time.perf_counter()
     zblobs = api._zstd_stage(resn, streams, n, cfg)

@@ -8,6 +8,7 @@ port's dependencies are installed:
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import functools
 import json
 
 import numpy as np
@@ -23,7 +24,10 @@ from ebcc_tpu_torch.ops import fused_eval as fe
 from ebcc_tpu_torch.ops import idwt
 from ebcc_tpu_torch.ops import idwt_probe as ip
 from ebcc_tpu_torch.ops import level0_counts as l0
+from ebcc_tpu_torch.ops import pack as pk
 from ebcc_tpu_torch.runtime import cpu_decoder, cpu_encoder, native
+from test_torch_pack import KINDS as PACK_KINDS
+from test_torch_pack import _truncation
 
 pytestmark = pytest.mark.cuda
 
@@ -371,41 +375,138 @@ def test_cuda_compress_matches_cpu_and_native(card):
             rec, ebcc_tpu_torch.decompress(blob, cfg, device="cpu"))
 
 
-def test_cuda_transfer_forms_match_cpu(card, monkeypatch):
-    """``_pack_small`` and ``_sparsify`` on the card equal the same
-    functions on CPU tensors (frames under and past the sparse cap, u8 /
-    u16 valid and not), and a compress with the forms equals one with
-    the fetch forced to the int32 planes, and the native encoder's."""
+# the stream packer (csrc/pack.cu) at the codec layers' geometries:
+# (height, width, group levels, planes, stripes); the truncations are
+# test_torch_pack.py's
+PACK_GEOMS = {"base": (768, 1472, 6, 22, 8), "resid": (736, 1440, 4, 14, 8)}
+
+
+@functools.lru_cache(maxsize=4)
+def _pack_planes(geom, source, card):
+    """int32 [2, h, w] planes of a layer on the card, and their spec:
+    heavy-tailed random magnitudes with a zero band, or a codec batch's
+    own planes of that layer (two 721x1440 bench frames, MAX_ERROR 0.5
+    with the base quantile 1e-3, so the residual planes are coded)."""
+    h, w, g, p, j = PACK_GEOMS[geom]
+    spec = bp.CoderSpec(height=h, width=w, group_levels=g, nplanes=p,
+                        nchunks=j)
+    if source == "random":
+        rng = np.random.default_rng(21)
+        mag = np.minimum((rng.pareto(1.1, (2, h, w)) * 9).astype(np.int64),
+                         (1 << (p - 1)) - 1)
+        mag[:, h // 3:h // 2] = 0
+        coef = (mag * rng.choice([-1, 1], mag.shape)).astype(np.int32)
+        return torch.from_numpy(coef).to(card), spec
     from ebcc_tpu_torch import api
-    rng = np.random.default_rng(12)
-    mag = np.exp(rng.uniform(0, 14, (B, H, W))).astype(np.int64)
-    mag *= rng.random((B, H, W)) < np.array([0.01, 0.1, 0.2, 0.6])[:, None,
-                                                                   None]
-    ci = (mag * rng.choice([-1, 1], mag.shape)).astype(np.int32)
-    step = np.array([int(m.max()).bit_length() - 1 for m in mag], np.int32)
-    low = np.array([0, 7, 12, 14], np.int32)
-    codec = FrameCodec(H, W, EBCCConfig(max_batch=B), card)
-    outs = {}
-    for dev in (card, torch.device("cpu")):
-        p16, p8, s16, s8, ok16, ok8 = codec._pack_small(
-            *(torch.from_numpy(a).to(dev) for a in (ci, step, low)))
-        outs[dev.type] = (p16, p8, s16, s8, ok16, ok8,
-                          *codec._sparsify(p16, ok16, H * W // 8))
-    for a, b in zip(outs["cuda"], outs["cpu"]):
-        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
-    # u16 exact in frames 1-3, u8 in frame 3, the sparse form in frames 1
-    # and 2 (frame 3 is past the cap)
-    assert outs["cpu"][4].tolist() == [False, True, True, True]
-    assert outs["cpu"][5].tolist() == [False, False, False, True]
-    assert outs["cpu"][9].tolist() == [False, True, True, False]
-    data = _field(5, seed=4)
-    cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.5, base_cr=100,
-                     max_batch=2)
-    blob = ebcc_tpu_torch.compress(data, cfg, device="cuda")
-    monkeypatch.setattr(api, "_fetch_coef", lambda res, rd, layer: (
-        "dense", api._host(rd, f"{layer}_coef"), None))
-    assert ebcc_tpu_torch.compress(data, cfg, device="cuda") == blob
-    assert blob == cpu_encoder.compress(data, cfg)
+    from ebcc_tpu_torch.scripts import common
+    cfg = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.5, max_batch=2)
+    codec = FrameCodec(721, 1440, cfg, card)
+    data = common.bench_frames(2)
+    u, mn, mx, maxq = api._scale_u16_host(data)
+    res, _ = codec._eb_multi_hostq(
+        api._upload_u16(u, card), torch.from_numpy(mn).to(card),
+        torch.from_numpy(mx).to(card),
+        torch.from_numpy(np.float32(0.5) - maxq).to(card), (1e-3,))
+    coef = res[0].base_coef if geom == "base" else res[0].resid_coef
+    assert (codec.base if geom == "base" else codec.resid).spec == spec
+    return coef, spec
+
+
+@pytest.mark.parametrize("kind", PACK_KINDS)
+@pytest.mark.parametrize("source", ["random", "codec"])
+@pytest.mark.parametrize("geom", list(PACK_GEOMS))
+def test_pack_kernel_equals_native_arena(card, geom, source, kind):
+    """The kernel's arena equals native's coder_encode_batch byte for byte
+    up to the truncation, and is zero past it."""
+    coef, spec = _pack_planes(geom, source, card)
+    an = bp.analyze(coef, spec)
+    counts = bp.segment_counts(an, spec)
+    trunc = _truncation(counts.cpu(), spec, kind).to(card)
+    arena = pk.pack_streams(coef, an, counts, trunc, spec)
+    torch.cuda.synchronize()
+    arena = arena.cpu().numpy()
+    assert arena.shape == (2, pk.stream_capacity(spec))
+    ref = native.coder_encode_batch(coef.cpu().numpy(), trunc.cpu().numpy(),
+                                    spec.group_levels, spec.nplanes,
+                                    spec.nchunks)
+    for i, t in enumerate(trunc.tolist()):
+        nbytes = (t + 7) // 8
+        np.testing.assert_array_equal(arena[i, :nbytes], ref[i, :nbytes])
+        assert not arena[i, nbytes:].any()
+
+
+def test_pack_kernel_equals_plain_and_refuses_bad_tensors(card):
+    """At 96x160 the kernel's arena is the plain version's on the same
+    tensors (every frame cut at another plane's end); it launches once and
+    refuses a non-contiguous or a mixed-device input."""
+    spec = bp.CoderSpec(96, 160, 4, 14, 8)
+    rng = np.random.default_rng(6)
+    coef = torch.from_numpy((rng.standard_normal((3, 96, 160)) * np.exp(
+        rng.uniform(0, 7, (3, 96, 160)))).astype(np.int32)).to(card)
+    an = bp.analyze(coef, spec)
+    counts = bp.segment_counts(an, spec)
+    trunc = bp.candidate_bits(counts, spec)[[0, 1, 2], [2, 6, 13], -1].long()
+    pk.KERNEL.launches = 0
+    arena = pk.pack_streams(coef, an, counts, trunc, spec)
+    assert pk.KERNEL.launches == 1
+    ref = pk.pack_streams_ref(an, trunc, spec)
+    assert torch.equal(arena, ref)
+    with pytest.raises(ValueError, match="contiguous"):
+        pk.pack_streams(coef.transpose(1, 2).contiguous().transpose(1, 2),
+                          an, counts, trunc, spec)
+    with pytest.raises(ValueError, match="pack_streams"):
+        pk.pack_streams(coef, an, counts, trunc.cpu(), spec)
+
+
+def _z500_day(n=24):
+    """The benchmark configuration's first day of frames and its codec
+    configuration (portbench/configs/era5_z500_maxerr.json)."""
+    from portbench import core
+    with open("portbench/configs/era5_z500_maxerr.json") as f:
+        config = json.load(f)
+    frames = core.make_inputs(dict(config, pool_frames=n))["frames"]
+    return frames, core.codec_config(config), config["env"]
+
+
+def _host_packed(h, w, cfg, card):
+    """A codec on the card whose streams the host's native coder packs
+    from the int32 planes (the CPU's route)."""
+    codec = FrameCodec(h, w, cfg, card)
+    codec.packs_streams = False
+    return codec
+
+
+def test_cuda_packer_containers_equal_host_coder(card, monkeypatch):
+    """``api.compress`` on the card: a seeded z500 day at the benchmark's
+    configuration, a POINTWISE batch and a ``compress_multi_q`` batch give
+    the containers of the host coder's path and of the native encoder."""
+    from ebcc_tpu_torch import api
+    from ebcc_tpu_torch.scripts import common
+    day, cfg, env = _z500_day()
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    blob = ebcc_tpu_torch.compress(day, cfg, device="cuda")
+    assert blob == ebcc_tpu_torch.compress(
+        day, cfg, codec=_host_packed(721, 1440, cfg, card))
+    assert blob == cpu_encoder.compress(day, cfg)
+    monkeypatch.delenv("EBCC_DISABLE_PURE_JP2_FALLBACK")
+    data = common.bench_frames(8)
+    eb = np.random.default_rng(3).uniform(0.2, 0.6, data.shape).astype(
+        np.float32)
+    pw = EBCCConfig(mode=ResidualMode.POINTWISE_MAX_ERROR, max_batch=8)
+    blob = ebcc_tpu_torch.compress(data, pw, error_bound=eb, device="cuda")
+    assert blob == ebcc_tpu_torch.compress(
+        data, pw, error_bound=eb, codec=_host_packed(721, 1440, pw, card))
+    assert blob == cpu_encoder.compress(data, pw, error_bound=eb)
+    mq = EBCCConfig(mode=ResidualMode.MAX_ERROR, error=0.5, max_batch=8)
+    qs = (1e-6, 1e-3)
+    blobs = ebcc_tpu_torch.compress_multi_q(data, qs, mq, device="cuda")
+    monkeypatch.setattr(api, "_codec_for",
+                        lambda h, w, c, d: _host_packed(h, w, c, card))
+    assert blobs == ebcc_tpu_torch.compress_multi_q(data, qs, mq,
+                                                    device="cuda")
+    for q, b in zip(qs, blobs):
+        assert b == cpu_encoder.compress(data, mq, qbase=q)
 
 
 def test_cuda_rate_modes_match_cpu_and_native(card):
@@ -584,7 +685,7 @@ def test_cuda_packer_equals_native(card):
 def test_cuda_profile_stages_container_is_compress(card):
     """The stage-by-stage profile of a batch of 2 bench frames on the card
     writes ``compress``'s container (and the native encoder's), within the
-    bound, with the coefficient planes' fetch measured both ways."""
+    bound, with the packed streams' copy measured."""
     from ebcc_tpu_torch.scripts import common, profile_stages
     from ebcc_tpu_torch.scripts.bench import bench_config
     data = common.bench_frames(2)
@@ -593,13 +694,12 @@ def test_cuda_profile_stages_container_is_compress(card):
     assert blob == ebcc_tpu_torch.compress(data, cfg, device="cuda")
     assert blob == cpu_encoder.compress(data, cfg)
     assert t["max_err"] <= 0.5 and t["device"] == "cuda"
-    # the base crosses as its u16 form, half its int32 planes' bytes: the
-    # sparse pairs' 16-bit deltas cannot span the gaps of over 65535
-    # positions between its few coded coefficients
+    # the card packs the base: its packed prefix crosses, a small part of
+    # its int32 planes' bytes
     assert t["3a_coef_int32_bytes"] == 2 * 768 * 1472 * 4
-    assert (t["3a_form_base"], t["3a_form_resid"]) == ("u16", None)
-    assert t["3a_coef_d2h_bytes"] == 2 * 768 * 1472 * 2
-    assert t["3a_coef_d2h_pinned_gbps"] > 0
+    assert t["3_packed_on"] == "card"
+    assert 0 < t["3a_arena_d2h_bytes"] < t["3a_coef_int32_bytes"] / 20
+    assert t["3a_arena_d2h_gbps"] > 0
     assert t["1_device_encode_search"] >= t["1a_encode_enqueue"] > 0
 
 
@@ -681,15 +781,16 @@ def test_cuda_graph_replay_equals_eager(card, pointwise):
     codec = FrameCodec(H, W, EBCCConfig(max_batch=B), card)
     batches = [_hostq_inputs(codec, _field(B, seed=s), pointwise)
                for s in (9, 10, 12)]
-    for k in (l0.KERNEL, fe.KERNEL, idwt.KERNEL):
+    kernels = {l0.KERNEL, fe.KERNEL, idwt.KERNEL, pk.KERNEL}
+    for k in kernels:
         k.launches = 0
     outs = [codec.encode_error_bounded_hostq(*b, 1e-6) for b in batches]
     assert len(codec.graph_entries()) == 1
     [entry] = codec.graph_entries().values()
     assert entry.replays == 2 and entry.launches
     # the eager first call launched each kernel once a batch, the capture
-    # none, each of the two replays once
-    assert set(entry.launches) == {l0.KERNEL, fe.KERNEL, idwt.KERNEL}
+    # none, each of the two replays once; the stream packer among them
+    assert set(entry.launches) == kernels
     assert all(k.launches == 3 * n for k, n in entry.launches.items())
     for out, b in zip(outs, batches):
         eres, emetas = codec._eb_multi_hostq(*b, (1e-6,))

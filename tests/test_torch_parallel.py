@@ -76,21 +76,11 @@ def _frames(n, h, w, seed=0, noise=0.05):
                      for _ in range(n)])
 
 
-SPARSE_FIELDS = tuple(f"{layer}_{f}" for layer in ("base", "resid")
-                      for f in ("sp_delta", "sp_val", "nsig", "sparse_ok"))
-
-
-def _assert_results_equal(ours, ref, sparse_off=False):
-    """Every field equal; with ``sparse_off`` (the spatial codec, as the
-    JAX package's) the sparse form's fields are off instead: zero pairs,
-    no count, never valid."""
+def _assert_results_equal(ours, ref):
+    """Every field equal (the spatial codec's too)."""
     for f in ref._fields:
         a, b = getattr(ours, f), getattr(ref, f)
-        if sparse_off and f in SPARSE_FIELDS:
-            assert a.dtype == b.dtype and a.shape == b.shape, f
-            assert not a.to(torch.int32).any(), f
-        else:
-            assert a.dtype == b.dtype and torch.equal(a, b), f
+        assert a.dtype == b.dtype and torch.equal(a, b), f
 
 
 # ---------------- the halo DWT ----------------
@@ -232,8 +222,7 @@ def test_sharded_codecs_equal_dense_and_native(stack, mesh42, dense, cls,
     eb, tgt = _targets(stack, mode)
     sc = cls(H, W, cfg, mesh42)
     res = sc.encode_error_bounded(torch.from_numpy(stack), tgt, 1e-6)
-    _assert_results_equal(res, dense[mode],
-                          sparse_off=cls is SpatialShardedCodec)
+    _assert_results_equal(res, dense[mode])
     if mode == "max_error":  # the stack exercises the chunk-mask path
         assert (res.km_q >= 0).any()
     blob = api.compress(stack, cfg, error_bound=eb, codec=sc)
@@ -387,8 +376,7 @@ def _worker(rank: int, world: int, port: int) -> None:
         assert [s.rank for s in cols.shards[0]] == [0, 1]
         _assert_results_equal(SpatialShardedCodec(h, w, cfg, cols)
                               .encode_error_bounded(torch.from_numpy(data),
-                                                    tgt, 1e-6), dense,
-                              sparse_off=True)
+                                                    tgt, 1e-6), dense)
         blob = compress_sharded(data, cfg, rows)
         assert blob == api.compress(data, cfg, device="cpu")
         blobs = [None] * world

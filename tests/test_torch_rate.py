@@ -155,8 +155,8 @@ def test_rate_pick_agrees_with_both_formulations():
                                        torch.from_numpy(mn),
                                        torch.from_numpy(mx))
     an = bp.analyze(ci, codec.base.spec)
-    cand = bp.candidate_bits(bp.segment_counts(an, codec.base.spec),
-                             codec.base.spec).flatten(1).numpy()
+    counts = bp.segment_counts(an, codec.base.spec)
+    cand = bp.candidate_bits(counts, codec.base.spec).flatten(1).numpy()
     assert (np.diff(cand, axis=-1) >= 0).all()
     budget = int(32 * H * W / RATE_CR)
     by_count = (cand <= budget).sum(-1) - 1
@@ -165,7 +165,7 @@ def test_rate_pick_agrees_with_both_formulations():
     np.testing.assert_array_equal(by_count, by_scan)
     nk = 2 * cfg.nchunks
     assert (by_count % nk != nk - 1).all()  # inside a plane
-    bits, bs, ks = codec._rate_pick(codec.base, an, budget)
+    bits, bs, ks = codec._rate_pick(codec.base, counts, budget)
     np.testing.assert_array_equal(bs.numpy(),
                                   cfg.base_nplanes - 1 - by_count // nk)
     np.testing.assert_array_equal(ks.numpy(), by_count % nk)

@@ -111,12 +111,9 @@ KEYS = {
          "1a_encode_enqueue", "1c_encode_capture",
          "1c_capture_reserved_bytes", "1c_capture_held_bytes",
          "1e_encode_eager", "1e_encode_eager_enqueue", "9c_recon_capture",
-         "2_meta_bytes", "3a_coef_d2h",
-         "3a_coef_d2h_bytes", "3a_coef_int32_bytes", "3a_form_base",
-         "3a_form_resid", "3a_nsig_max_base", "3a_nsig_max_resid",
-         "3a_bucket_base", "3a_bucket_resid",
-         "3a_coef_d2h_gbps", "3a_coef_d2h_pinned",
-         "3a_coef_d2h_pinned_gbps", "3b_native_pack", "9a_h2d_upload",
+         "2_meta_bytes", "3a_arena_d2h", "3a_arena_d2h_bytes",
+         "3a_coef_int32_bytes", "3a_arena_d2h_gbps", "3b_host_pack",
+         "3_packed_on", "9a_h2d_upload",
          "9b_d2h_frames", "batch", "device", "card", "timing"}),
     "profile_transforms": (
         _jax_keys("scripts/profile_transforms.py", "main", "store"), set(),
@@ -193,12 +190,11 @@ def test_profile_stages_container_is_compress(data):
     assert blob == ebcc_tpu_torch.compress(data[:FPB], cfg, device="cpu")
     assert t["max_err"] <= 0.5
     assert t["3_coef_fetch_plus_native_pack"] == pytest.approx(
-        t["3a_coef_d2h"] + t["3b_native_pack"])
-    # only the base layer crosses (pure-base frames: no residual), as its
-    # u16 form: half the bytes of its int32 planes
+        t["3a_arena_d2h"] + t["3b_host_pack"])
+    # only the base layer is packed (pure-base frames: no residual), by
+    # the host off a card: nothing crosses
     assert t["3a_coef_int32_bytes"] == FPB * 64 * 64 * 4
-    assert (t["3a_form_base"], t["3a_form_resid"]) == ("u16", None)
-    assert t["3a_coef_d2h_bytes"] == FPB * 64 * 64 * 2
+    assert (t["3_packed_on"], t["3a_arena_d2h_bytes"]) == ("host", 0)
     stages = [t[f"stage_{n}"] for n in profile_stages.DEVICE_STAGES]
     assert all(s > 0 for s in stages)
     assert t["cum_residual_and_packings"] == pytest.approx(sum(stages))
@@ -221,10 +217,9 @@ def test_profile_stages_with_a_residual_layer(monkeypatch):
     assert blob == cpu_encoder.compress(frames, cfg, qbase=1e-3)
     assert all(container.unpack_frame(f)[0].flags & container.FLAG_RESID
                for f in container.unpack_blob(blob))
-    # both layers cross, each in a form smaller than its int32 planes
+    # both layers are packed, by the host off a card
     assert t["3a_coef_int32_bytes"] > 2 * 64 * 64 * 4
-    assert None not in (t["3a_form_base"], t["3a_form_resid"])
-    assert 0 < t["3a_coef_d2h_bytes"] < t["3a_coef_int32_bytes"]
+    assert t["3_packed_on"] == "host"
     assert t["8_native_resid_decode"] > 0
 
 
