@@ -19,6 +19,7 @@ from ..api import pointwise_targets
 from ..codec import container
 from ..codec.config import (EBCCConfig, ResidualMode, base_error_quantile,
                             pure_fallback_disabled)
+from ..utils import profiling
 from . import native as _native
 
 
@@ -44,10 +45,12 @@ def compress(data, config: EBCCConfig | None = None, *, error_bound=None,
         if error_bound is None:
             raise ValueError("POINTWISE_MAX_ERROR requires error_bound")
         eb = np.asarray(error_bound, np.float32).reshape(frames.shape)
-        # the same targets api.compress searches against, so the
-        # containers stay byte-identical
-        targets = np.ascontiguousarray(pointwise_targets(
-            frames, eb, config.pointwise_max_error_ratio), np.float32)
+        # the targets api.compress computes on its device, bit for bit,
+        # so the containers stay byte-identical
+        with profiling.span("compress.targets", where="host",
+                            frames=len(frames)):
+            targets = np.ascontiguousarray(pointwise_targets(
+                frames, eb, config.pointwise_max_error_ratio), np.float32)
     enc = _native.lib().ebcc_cpu_encode_frame
     cap = 8 * h * w + 65536
     # 0 = masking off, 1 = greedy scan, 2 = union rule

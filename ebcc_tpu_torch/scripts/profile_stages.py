@@ -15,8 +15,8 @@ the JAX script's keys:
   the best of 3 warm calls: on a card, replays of its CUDA graph),
   ``2_device_to_host_transfer_small`` (the packed metadata's copy,
   ``api._unpack_meta`` and the early pure decision; ``2_meta_bytes``),
-  ``3_coef_fetch_plus_native_pack``, ``4_zstd``, ``5_assemble`` (frames
-  and container);
+  ``3_coef_fetch_plus_native_pack``, ``4_zstd``, ``5_assemble`` (the base
+  streams' zstd, frames and container);
 * decode: ``6_unzstd`` (headers and both layers' zstd),
   ``7_native_base_decode``, ``8_native_resid_decode``, ``9_device_recon``
   (``recon_packed`` on resident planes, synchronised; a warm call: on a
@@ -267,8 +267,9 @@ def profile_stages(data, device="cuda", config=None, qbase=None,
     t["4_zstd"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    zbase = api._zstd_base(resn, range(n), cfg, streams[0], zblobs)
     blob = container.pack_blob([
-        api._assemble_frame(resn, i, h, w, cfg, streams, zblobs)
+        api._assemble_frame(resn, i, h, w, cfg, streams, zblobs, zbase)
         for i in range(n)])
     t["5_assemble"] = time.perf_counter() - t0
     del res, rd, inputs

@@ -362,6 +362,49 @@ def test_cuda_pointwise_compress_matches_cpu_and_native(card):
     assert np.all(np.abs(rec - data) <= eb)
 
 
+def test_cuda_t2m_day_pointwise(card):
+    """A day of the benchmark's pointwise deployment
+    (``portbench/configs/era5_t2m_pointwise.json``: 24 frames of 721x1440
+    2 m temperature under the generated ensemble spread, ratio 1.0) on the
+    card: the per-point targets computed there are bit-equal to the host
+    route's, the containers equal the native encoder's, and every decoded
+    point holds its bound."""
+    import dataclasses
+    import time
+
+    from ebcc_tpu_torch import api
+    from ebcc_tpu_torch.utils import profiling
+    from portbench import core
+
+    with open("portbench/configs/era5_t2m_pointwise.json") as f:
+        config = dict(json.load(f), pool_frames=24)
+    inputs = core.make_inputs(config)
+    frames, eb = inputs["frames"], inputs["bound"]
+    cfg = core.codec_config(config)
+    ratio = cfg.pointwise_max_error_ratio
+    _, _, _, tgt = api._batch_inputs(frames, 0, 8, cfg,
+                                     api._pointwise_bound(frames, cfg, eb),
+                                     card)
+    _, _, _, maxq = api._scale_u16_host(frames[:8])
+    want = api.pointwise_targets(frames[:8], eb[:8], ratio) - \
+        maxq[:, None, None]
+    assert tgt.is_cuda
+    np.testing.assert_array_equal(tgt.cpu().numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    t0 = time.perf_counter()
+    blob = ebcc_tpu_torch.compress(frames, cfg, error_bound=eb,
+                                   device="cuda")
+    where = [r.attrs for r in profiling.records()
+             if r.start >= t0 and r.name == "compress.targets"]
+    assert where == [{"frames": 8, "where": "card"}] * 3
+    assert blob == ebcc_tpu_torch.compress(
+        frames, dataclasses.replace(cfg, encode_backend="cpu"),
+        error_bound=eb)
+    rec = ebcc_tpu_torch.decompress(blob, cfg, device="cuda")
+    np.testing.assert_array_equal(rec, cpu_decoder.decompress(blob))
+    assert np.all(np.abs(rec - frames) <= eb * np.float32(ratio))
+
+
 def test_cuda_compress_matches_cpu_and_native(card):
     data = _field(5, seed=3)
     for mode, err in ((ResidualMode.MAX_ERROR, 0.25),
@@ -846,6 +889,46 @@ def test_cuda_graph_threads_get_their_own_containers(card):
     assert not errors, errors
     for i, stack in enumerate(stacks):
         assert blobs[i] == cpu_encoder.compress(stack, cfg), i
+
+
+def test_cuda_pointwise_threads_get_their_own_containers(card):
+    """Threads compressing pointwise stacks at once, each batch's rows
+    through pinned memory without a wait and each copy back waited for on
+    a blocking event, each get the native encoder's container of its own
+    stack under its own bound."""
+    import threading
+
+    from ebcc_tpu_torch import api
+    cfg = EBCCConfig(mode=ResidualMode.POINTWISE_MAX_ERROR, base_cr=100,
+                     max_batch=2)
+    stacks = [_field(5, seed=30 + i) for i in range(4)]
+    bounds = [np.random.default_rng(40 + i).uniform(
+        0.05, 0.5, s.shape).astype(np.float32) for i, s in enumerate(stacks)]
+    rows = api._upload_pinned(bounds[0][:2], card)
+    assert rows.is_cuda and rows.dtype == torch.float32
+    np.testing.assert_array_equal(rows.cpu().numpy(), bounds[0][:2])
+    for _ in range(2):  # the eager first call, then the capture
+        ebcc_tpu_torch.compress(stacks[0], cfg, error_bound=bounds[0],
+                                device="cuda")
+    blobs, errors = {}, []
+
+    def work(i):
+        try:
+            for _ in range(3):
+                blobs[i] = ebcc_tpu_torch.compress(
+                    stacks[i], cfg, error_bound=bounds[i], device="cuda")
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for i, stack in enumerate(stacks):
+        assert blobs[i] == cpu_encoder.compress(stack, cfg,
+                                                error_bound=bounds[i]), i
 
 
 def test_cuda_graph_spans_name_each_kind_of_call(card):

@@ -30,7 +30,7 @@ CPU = torch.device("cpu")
 # every span of api.compress's device route that the CPU records
 COMPRESS_SPANS = {"compress", "compress.prepare", "compress.scale",
                   "compress.upload", "d2h.start", "d2h.wait",
-                  "compress.drain", "coder.pack", "zstd"}
+                  "compress.drain", "coder.pack", "zstd", "compress.select"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -210,7 +210,8 @@ def test_compress_records_every_span_of_its_path_under_its_request():
     assert all(r.attrs["bytes"] > 0 for r in by["compress.upload"])
     assert all(r.attrs["bytes"] == 0 for r in by["d2h.start"])
     drains = {r.id for r in by["compress.drain"]}
-    for name in ("coder.pack", "zstd", "d2h.wait"):
+    assert [r.attrs["frames"] for r in by["compress.select"]] == [2, 2]
+    for name in ("coder.pack", "zstd", "d2h.wait", "compress.select"):
         assert all(r.parent in drains for r in by[name]), name
     assert all(r.attrs.keys() == {"bytes_in", "bytes_out"}
                for r in by["zstd"])
