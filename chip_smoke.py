@@ -160,12 +160,12 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_times(fn, tries: int = 3):
-    """Device time by kernel of one ``fn()`` call under torch.profiler,
-    after one traced warm-up call whose events are dropped (a cold trace
-    can miss its first kernels); a trace that recorded no device event at
-    all is taken again, up to ``tries`` times: ({short kernel name:
-    (microseconds, launches)}, wall microseconds)."""
+def kernel_events(fn, tries: int = 3):
+    """The device kernels of one ``fn()`` call under torch.profiler, in
+    the order they started, after one traced warm-up call whose events are
+    dropped (a cold trace can miss its first kernels); a trace that
+    recorded no device event at all is taken again, up to ``tries`` times:
+    ([(short kernel name, microseconds)], wall microseconds)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(tries):
@@ -182,7 +182,7 @@ def kernel_times(fn, tries: int = 3):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e6
             prof.step()
-        out = {}
+        out = []
         for ev in prof.events():
             # the step's own span sits on the device track too: not a kernel
             if (ev.device_type != torch.autograd.DeviceType.CUDA or
@@ -190,12 +190,22 @@ def kernel_times(fn, tries: int = 3):
                 continue
             name = ev.name.replace("(anonymous namespace)::", "")
             name = name.split("<")[0].split("(")[0].split("::")[-1]
-            name = name.split()[-1]
-            us, n = out.get(name, (0.0, 0))
-            out[name] = (us + ev.time_range.elapsed_us(), n + 1)
+            out.append((ev.time_range.start, name.split()[-1],
+                        ev.time_range.elapsed_us()))
         if out:
-            return out, wall
+            return [(name, us) for _, name, us in sorted(out)], wall
     print(f"torch.profiler recorded no device time in {tries} traces")
+    return [], wall
+
+
+def kernel_times(fn, tries: int = 3):
+    """Device time by kernel of one ``fn()`` call (:func:`kernel_events`):
+    ({short kernel name: (microseconds, launches)}, wall microseconds)."""
+    events, wall = kernel_events(fn, tries)
+    out = {}
+    for name, us in events:
+        t, n = out.get(name, (0.0, 0))
+        out[name] = (t + us, n + 1)
     return out, wall
 
 
@@ -258,6 +268,57 @@ def pass_bytes(batch, hp, wp, levels, h, w) -> dict:
             "eval_lift_rows": batch * (area - 8 * hp * wp),
             "eval_rows_tail": batch * (4 * h * wp + 4 * h * w),
             "idwt_lift_cols": batch * area, "idwt_lift_rows": batch * area}
+
+
+def col_pass_levels(fe, ci, ref, args, batches, tag) -> dict:
+    """K1's column pass level by level in one base/trunc evaluation of the
+    first B frames, for each B of ``batches``: the device time of each
+    ``eval_lift_cols`` launch (profiler; launch k is level L-1-k), its
+    tile (``fused_eval.col_plan``) and its bytes (the level's region read
+    from ci or the level below, rows < hstore written) as GB/s.  The strip
+    design it replaced ran at 1081-1090 GB/s over an evaluation at B=16
+    (chip_smoke) and about 0.9 TB/s in the benchmark's cells at B=8.
+    Raises unless every evaluation launched the pass once a level.
+    Returns {B: (GB/s over the evaluation, [per-level ms])}."""
+    hp, wp = ci.shape[1:]
+    levels, h = args["levels"], args["h"]
+    sms = fe.cuda.sm_count(ci.device)
+    out = {}
+    for nb in batches:
+        sub = {k: (v[:nb].contiguous() if torch.is_tensor(v) and v.dim() and
+                   v.shape[0] == ci.shape[0] else v)
+               for k, v in args.items()}
+        b = torch.full((nb,), 11, dtype=torch.int32, device=ci.device)
+        ws = torch.empty(fe.workspace_size(nb, hp, wp), device=ci.device)
+        ci_b, ref_b = ci[:nb].contiguous(), ref[:nb].contiguous()
+        events, _ = kernel_events(lambda: fe.eval_stats(
+            ci_b, ref_b, b, mode="trunc", js=8, jr=8, workspace=ws, **sub))
+        cols = [us for name, us in events if name == "eval_lift_cols"]
+        print(f"B={nb}: {len(cols)} eval_lift_cols launches in one "
+              f"evaluation of {levels} levels {tag}")
+        if len(cols) != levels:
+            raise AssertionError(f"eval_lift_cols launched {len(cols)} "
+                                 f"times, not once for each of {levels} "
+                                 "levels")
+        total_bytes, ms = 0, []
+        for k, us in enumerate(cols):
+            i = levels - 1 - k
+            hh, ww = hp >> i, wp >> i
+            hstore = h if i == 0 else hh
+            nbytes = 4 * nb * ww * (hh + hstore)
+            total_bytes += nbytes
+            ms.append(us / 1e3)
+            p = fe.col_plan(hh, ww, hstore, nb, sms)
+            print(f"  level {i} {hh}x{ww}: {us / 1e3:.4f} ms, "
+                  f"{nbytes / 1e6:.2f} MB, {nbytes / us * 1e-3:.0f} GB/s; "
+                  f"strip {p.strip}, band {p.band}, {p.nstrips}x{p.nbands} "
+                  f"items a frame, grid {p.grid}")
+        gbs = total_bytes / sum(cols) * 1e-3
+        print(f"  all levels: {sum(cols) / 1e3:.4f} ms, "
+              f"{total_bytes / 1e6:.1f} MB, {gbs:.0f} GB/s (strip design: "
+              f"1081-1090 GB/s at B=16, about 900 at B=8) {tag}")
+        out[nb] = (gbs, ms)
+    return out
 
 
 def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -1349,6 +1410,9 @@ def main() -> int:
     k1_passes, _ = kernel_times(lambda: fe.eval_stats(
         ci_, ref_, frames * 0 + 11, mode="trunc", js=8, jr=8, workspace=ws,
         **a))
+    phase("K1's column pass by level (eval_lift_cols, base/trunc, B=8 and "
+          f"B={BATCH})")
+    col_levels = col_pass_levels(fe, ci_, ref_, a, (8, BATCH), tag)
     del layers, a, ci_, ref_, ws
 
     phase("K1p fused_eval vs plain torch, per-point target field (maxd "
@@ -2652,7 +2716,9 @@ def main() -> int:
         dict(entry("fused_eval", "fused_eval.cu",
                    "ebcc_tpu/ops/pallas_eval.py:219", max(k1_err, k1p_err),
                    k1p_key, k1_bound),
-             launches_drivers_path_by_target=k1_drivers),
+             launches_drivers_path_by_target=k1_drivers,
+             col_pass_by_level={f"B={nb}": {"gb_per_s": g, "level_ms": m}
+                                for nb, (g, m) in col_levels.items()}),
         dict(entry("idwt", "idwt.cu", "scripts/pallas_idwt_probe2.py:106",
                    idwt_err, idwt_key, idwt_bound),
              also_replaces="scripts/pallas_idwt_probe.py:122"),

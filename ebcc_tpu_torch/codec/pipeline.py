@@ -155,8 +155,8 @@ class _Eval:
             lo=lo, hi=hi, tgt=None if pointwise else target,
             tgt_field=_pad_to(target, hp, wp) if pointwise else None,
             base_rec=None if base_rec is None else _pad_to(base_rec, hp, wp))
-        self.workspace = (torch.empty(ci.shape, dtype=torch.float32,
-                                      device=ci.device)
+        self.workspace = (torch.empty(fe.workspace_size(*ci.shape),
+                                      dtype=torch.float32, device=ci.device)
                           if ci.is_cuda else None)
         # violation fraction = count * f32(1 / (h * w)), as the TPU kernel
         self.inv_n = float(np.float32(1.0 / (h * w)))

@@ -12,11 +12,16 @@ valid h x w region.
 CUDA tensors and runs :func:`eval_stats_ref`, the plain torch version, for
 CPU tensors.  Both follow the native codec's arithmetic site by site (fma
 sites, reciprocal multiplies), so their feasibility decisions agree.
+
+:func:`col_plan` chooses the tile of the kernel's column pass at each
+level (strip width, band height, grid); the kernel takes it as integers.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,8 +37,107 @@ _MODES = ("trunc", "masked")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = cuda.Kernel(
     "fused_eval", "ebcc_fused_eval",
-    [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
-     _P, _P])
+    [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+     _P, _P, _P])
+
+# The column pass (csrc/fused_eval.cu eval_lift_cols, csrc/lifting.cuh):
+# CTAs of 256 threads, COL_CTAS_PER_SM of them resident on each SM (so
+# their two stages take at most COL_SMEM each of its 228 KB), walk (frame,
+# strip, band) items; a thread lifts COL_RUN (s, d) pairs of one column at
+# a time from a window reaching COL_HALO pairs past each end of its band.
+COL_CTAS_PER_SM = 4
+COL_RUN = 4
+COL_HALO = 2
+COL_STRIPS = (32, 64)
+COL_SMEM = 55 * 1024
+# col_plan's model of a level's time: a fixed cost for each item of the
+# CTA with the most (its window's copies waited for, two syncs, its
+# set-up), and a cost for each window element (copied, composed, lifted)
+# of the SM with the most, CTA c on SM c % sms; in microseconds, fitted to
+# every tile of the benchmark's layers at B = 3, 8 and 16 on an H100 80GB
+# HBM3 (median error 5 %; its picks within 2 % of the fastest tiles)
+_ITEM_US, _SM_ELEMENT_US = 2.09, 0.357e-3
+
+
+class ColPlan(NamedTuple):
+    """One level's column-pass tile: ``strip`` columns (128 or 256 bytes
+    of a row) by ``band`` (s, d) pairs (rows ``[2 p0, 2 p0 + 2 band)``),
+    ``halo`` pairs of window past each end of a band, ``nstrips`` x
+    ``nbands`` items a frame, and ``grid`` persistent CTAs."""
+    strip: int
+    band: int
+    halo: int
+    nstrips: int
+    nbands: int
+    grid: int
+
+
+def col_window_rows(band: int) -> int:
+    """Rows of an item's window in shared memory: s pairs [p0 - 1,
+    p0 + band + 2) and d pairs [p0 - 2, p0 + band + 2)."""
+    return 2 * band + 4 * COL_HALO - 1
+
+
+def col_smem(strip: int, band: int) -> int:
+    """Shared memory of a column-pass CTA, in bytes: two stages, each a
+    window of f32 and the item's candidate (4 int32)."""
+    return 2 * 4 * (col_window_rows(band) * strip + 4)
+
+
+@functools.lru_cache(maxsize=256)
+def col_plan(hh: int, ww: int, hstore: int, batch: int, sms: int) -> ColPlan:
+    """The column pass's tile at one level: the ``hh`` x ``ww`` region of
+    ``batch`` frames, rows ``< hstore`` written, on a card of ``sms`` SMs.
+
+    Every strip width and every band (a multiple of COL_RUN whose two
+    stages fit COL_SMEM) is timed on a model of the persistent grid: items
+    dealt round-robin in the kernel's order (frame, band, strip), a short
+    last band smaller; the most items any CTA walks, and the most window
+    elements any SM's CTAs load.  The fastest wins, the one with fewer
+    items on a tie.  Tall bands pay fewer item costs and halo rows; short
+    ones spread a small level or batch over more SMs."""
+    npairs = (hstore + 1) // 2
+    slots = COL_CTAS_PER_SM * sms
+    best = None
+    for strip in COL_STRIPS:
+        nstrips = -(-ww // strip)
+        band = COL_RUN
+        while col_smem(strip, band) <= COL_SMEM:
+            nbands = -(-npairs // band)
+            items = batch * nstrips * nbands
+            grid = min(items, slots)
+            nb = np.minimum(band, npairs - band * np.arange(nbands))
+            window = strip * col_window_rows(nb)
+            cta = np.pad(np.tile(np.repeat(window, nstrips), batch),
+                         (0, -items % grid)).reshape(-1, grid).sum(0)
+            sm = np.pad(cta, (0, -grid % sms)).reshape(-1, sms).sum(0)
+            t = _ITEM_US * -(-items // grid) + _SM_ELEMENT_US * sm.max()
+            key = (float(t), items)
+            if best is None or key < best[0]:
+                best = (key, ColPlan(strip, band, COL_HALO, nstrips, nbands,
+                                     grid))
+            if band >= npairs:
+                break
+            band += COL_RUN
+    return best[1]
+
+
+@functools.lru_cache(maxsize=64)
+def _col_plans(hp, wp, levels, h, batch, sms) -> np.ndarray:
+    """Every level's :func:`col_plan` as the kernel reads it: int32
+    [max(levels, 1), 6]."""
+    out = np.zeros((max(levels, 1), 6), np.int32)
+    for i in range(levels):
+        hh = hp >> i
+        out[i] = col_plan(hh, wp >> i, h if i == 0 else hh, batch, sms)
+    out.flags.writeable = False
+    return out
+
+
+def workspace_size(batch: int, hp: int, wp: int) -> int:
+    """f32 elements of the kernel's scratch: [batch, hp, wp] frames the
+    even levels lift in, then [batch, hp / 2, wp / 2] for the odd ones."""
+    return batch * hp * wp + batch * (hp // 2) * (wp // 2)
 
 
 def _params(batch, device, b, js, jr, dropmask, dc, lo, hi, tgt):
@@ -129,9 +233,9 @@ def eval_stats(ci, ref, b, *, kind: str, mode: str, levels: int,
     f32 [B, hp, wp] per-point targets (entries past (h, w) are ignored;
     exactly one of the two is given); ``base_rec``: f32 [B, hp, wp] fixed
     base reconstruction (kind="resid" only);
-    ``workspace``: optional f32 [B, hp, wp] scratch the CUDA kernel
-    reuses (allocated per call when None).  Returns (maxd f32 [B], count
-    int32 [B]).
+    ``workspace``: optional contiguous f32 scratch of
+    :func:`workspace_size` elements the CUDA kernel reuses (allocated per
+    call when None).  Returns (maxd f32 [B], count int32 [B]).
     """
     if kind not in _KINDS or mode not in _MODES:
         raise ValueError(f"unknown variant kind={kind!r} mode={mode!r}")
@@ -157,19 +261,22 @@ def eval_stats(ci, ref, b, *, kind: str, mode: str, levels: int,
         cuda.require_cuda_tensor(base_rec, "base_rec", torch.float32, shape)
     if tgt_field is not None:
         cuda.require_cuda_tensor(tgt_field, "tgt_field", torch.float32, shape)
+    size = (workspace_size(batch, hp, wp),)
     if workspace is None:
-        workspace = torch.empty(shape, dtype=torch.float32, device=dev)
-    cuda.require_cuda_tensor(workspace, "workspace", torch.float32, shape)
+        workspace = torch.empty(size, dtype=torch.float32, device=dev)
+    cuda.require_cuda_tensor(workspace, "workspace", torch.float32, size)
     iparams, fparams = _params(batch, dev, b, js, jr, dropmask, dc, lo, hi,
                                tgt)
     wts = level_weights(levels)
+    plans = _col_plans(hp, wp, levels, h, batch, cuda.sm_count(dev))
     stats = torch.empty((batch, 2), dtype=torch.int32, device=dev)
     KERNEL.launch(dev, ci.data_ptr(), ref.data_ptr(),
                   None if base_rec is None else base_rec.data_ptr(),
                   None if tgt_field is None else tgt_field.data_ptr(),
                   iparams.data_ptr(), fparams.data_ptr(), wts.ctypes.data,
-                  batch, hp, wp, levels, nchunks, h, w, _KINDS.index(kind),
-                  _MODES.index(mode), workspace.data_ptr(), stats.data_ptr())
+                  plans.ctypes.data, batch, hp, wp, levels, nchunks, h, w,
+                  _KINDS.index(kind), _MODES.index(mode),
+                  workspace.data_ptr(), stats.data_ptr())
     key = stats[:, 0]
     maxd = torch.where(key >= 0, key, key ^ 0x7FFFFFFF).view(torch.float32)
     return maxd, stats[:, 1]

@@ -14,6 +14,7 @@ when that is not ``cudaSuccess``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import re
 import shutil
@@ -153,6 +154,12 @@ def build_all(kernels) -> None:
         list(ex.map(Kernel.lib, first.values()))
     for k in kernels:
         k.lib()
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def require_cuda_tensor(t: torch.Tensor, name: str, dtype, shape) -> None:

@@ -196,19 +196,40 @@ def _assert_same_stats(ours, plain):
     assert torch.equal(ck, cr), (ck, cr)
 
 
+# (levels, hp, wp, h, w, frames): 0, 1 and 5 levels at small sizes; the
+# benchmark cells' base and residual layers at their batch of 8 and at 3;
+# column passes whose bands split the height unevenly (768 rows at B=3,
+# 520 rows at B=2) or take it in one band (40 rows at B=64), and the
+# scalar copies of the column pass (a level width or a row stride not a
+# multiple of 4)
+EVAL_LEVEL_CASES = [
+    pytest.param(0, 33, 50, 30, 45, 3, id="0-33-50-30-45"),
+    pytest.param(1, 64, 96, 60, 90, 3, id="1-64-96-60-90"),
+    pytest.param(5, 96, 160, 90, 150, 3, id="5-96-160-90-150"),
+    pytest.param(5, 768, 1472, 721, 1440, 8, id="base-B8"),
+    pytest.param(5, 768, 1472, 721, 1440, 3, id="base-B3"),
+    pytest.param(3, 736, 1440, 721, 1440, 8, id="resid-B8"),
+    pytest.param(3, 736, 1440, 721, 1440, 3, id="resid-B3"),
+    pytest.param(2, 520, 200, 515, 190, 2, id="uneven-bands"),
+    pytest.param(1, 40, 64, 37, 60, 64, id="one-band"),
+    pytest.param(2, 64, 100, 60, 99, 3, id="scalar-level-1"),
+    pytest.param(1, 64, 98, 61, 95, 3, id="scalar-row-stride"),
+]
+
+
 @pytest.mark.parametrize("target", ["scalar", "field"])
 @pytest.mark.parametrize("kind", ["base", "resid"])
-@pytest.mark.parametrize("levels,hp,wp,h,w", [(0, 33, 50, 30, 45),
-                                              (1, 64, 96, 60, 90),
-                                              (5, 96, 160, 90, 150)])
+@pytest.mark.parametrize("levels,hp,wp,h,w,nb", EVAL_LEVEL_CASES)
 def test_eval_stats_kernel_bit_equal_by_levels(card, levels, hp, wp, h, w,
-                                                kind, target):
-    """Kernel vs plain on random inputs at 0, 1 and 5 levels with a valid
-    region smaller than the frame (h < hp, w < wp): the one fused pass of
-    levels == 0, and the vector and scalar forms of the row pass (at 5
-    levels the two deepest rows have an n2 that is not a multiple of 4)."""
+                                                nb, kind, target):
+    """Kernel vs plain on random inputs with a valid region smaller than
+    the frame (h < hp, w < wp): the one fused pass of levels == 0, the
+    vector and scalar forms of the row pass (at 5 levels of 96x160 the two
+    deepest rows have an n2 that is not a multiple of 4) and of the column
+    pass, and the column pass's tiles at the cells' geometries and batch
+    (``EVAL_LEVEL_CASES``)."""
     rng = np.random.default_rng(10 * levels + (kind == "resid"))
-    nb, nchunks = 3, 8
+    nchunks = 8
     scale = 1 << (14 if kind == "base" else 8)
     ci = rng.integers(-scale, scale, (nb, hp, wp)).astype(np.int32)
     ci[:, ::3] //= 16
